@@ -1,0 +1,62 @@
+"""Batched receding-horizon serving: closed-loop MPC for B robots.
+
+Counterpart of `mpc_ros_tpu/engine/receding.py`. Each cycle solves every
+robot's NMPC problem warm-started from its previous solution (shifted by
+one step), applies the first control, and advances each plant one period
+with the same error-state kinematics the solver optimizes. The JAX
+`lax.scan` over cycles is a Python loop here; on CUDA tensors every
+cycle's solve is one launch of the solve kernel, and nothing leaves the
+device inside the loop.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..config import SolverConfig
+from ..models.base import get_model
+from ..solver.batch_lane import batch_solve_lane
+
+
+@dataclasses.dataclass
+class RecedingTrace:
+    zs: torch.Tensor      # (n_cycles, B, 6) plant states per cycle
+    us: torch.Tensor      # (n_cycles, B, 2) applied controls
+    costs: torch.Tensor   # (n_cycles, B) solve costs
+    iters: torch.Tensor   # (n_cycles, B) SQP iterations (warm-start signal)
+    converged: torch.Tensor  # (n_cycles, B) convergence certificates
+
+
+def receding_horizon_rollout(z0s: torch.Tensor, coeffs: torch.Tensor, p,
+                             cfg: SolverConfig, n_cycles: int = 20,
+                             blobs=None) -> RecedingTrace:
+    """Run `n_cycles` closed-loop control cycles for B robots. z0s (B, 6)
+    initial error states; coeffs (B, P) each robot's reference polynomial
+    (robot frame, fixed over the run)."""
+    if blobs is not None:
+        raise NotImplementedError(
+            "receding_horizon_rollout(blobs=...) is not ported yet (ROADMAP "
+            "Queue 2, K1 stage (e))")
+    B = z0s.shape[0]
+    T = cfg.n_controls
+    dtype = z0s.dtype
+    dt = torch.as_tensor(p.dt, dtype=dtype, device=z0s.device)
+    sign = cfg.cte_vsin_sign
+    mdl = get_model(cfg.model)
+    zs = z0s
+    warm = torch.zeros((B, T, 2), dtype=dtype, device=z0s.device)
+    rec = []
+    for _ in range(n_cycles):
+        res = batch_solve_lane(zs, coeffs, p, cfg, u_init=warm)
+        u0 = res.us[:, 0, :]                        # (B, 2)
+        zs_next = mdl.step(zs, u0, coeffs, dt, sign, p)
+        # shift warm start
+        warm = torch.cat([res.us[:, 1:], res.us[:, -1:]], dim=1)
+        rec.append((zs, u0, res.cost, res.n_iters, res.converged))
+        zs = zs_next
+    zs_t, us_t, costs_t, iters_t, conv_t = (torch.stack(r)
+                                            for r in zip(*rec))
+    return RecedingTrace(zs=zs_t, us=us_t, costs=costs_t,
+                         iters=iters_t.to(torch.int32), converged=conv_t)

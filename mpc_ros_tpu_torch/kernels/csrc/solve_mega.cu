@@ -1,0 +1,778 @@
+// The whole batched SQP solve in one Hopper kernel (sm_90a).
+//
+// Replaces the Pallas TPU megakernel mpc_ros_tpu/kernels/solve_pallas.py
+// (`_kernel`, launched by `solve_pallas`). The plain PyTorch version, with
+// the same operation order, is solve_mega_plain in kernels/solve_mega.py.
+//
+// Design. One thread owns one scenario and runs its complete control-
+// limited SQP loop: the initial rollout, then per iteration the inline-
+// linearized Riccati backward scan (gated GN->DDP terms, exact 2-D box QP
+// per stage), n_ls parallel line-search rollouts, the masked winner
+// re-roll and the per-lane mu / convergence / stall bookkeeping. The
+// per-tile early exit of the TPU kernel becomes a per-thread
+// `while (it < max_iters && !done)`; with done_frac = 1 this is exact,
+// because a done lane never updates, so its result does not depend on
+// which lanes share its tile.
+//
+// Layout. Every array is batch-minor, [...][lane], so a warp's 32 loads
+// and stores of one row are consecutive addresses. The trajectory lives in
+// device memory (wrapper-allocated scratch): traj_s (2, T+1, 6, B) and
+// traj_u (2, T, 2, B) double-buffered — the winner re-roll at step t+1
+// still reads the OLD knot t+1 — traj_g (T, 4, B) (rollout trig cache,
+// blended in place), ks (T, 2, B) and Ks (T, 2, 8, B). At T = 29 that is
+// ~1.1k floats (~4.6 KB) per scenario, so shared memory would hold only
+// ~49 scenarios per block. Vs, the value Hessian (its 28 live entries:
+// row/column 4 is structurally diag(wc2)), K, Qus and the n_ls candidate
+// states stay in registers; the template on (n_ls, ddp, fast trig,
+// adaptive weight scale) lets the 8x8 algebra unroll.
+//
+// What bounds it on this card: register pressure (the unrolled backward
+// stage keeps ~100 live values; `-Xptxas -v` reports registers and spills
+// in the build log) and the ~5 KB of per-scenario trajectory traffic per
+// SQP iteration, which streams through L2/HBM (B = 524,288 moves ~2.6 GB
+// per iteration). The batch-minor layout keeps that traffic coalesced.
+//
+// Numerics follow the reference kernel: read_s selects (never multiplies)
+// the zero previous control at t = 0; trig "exact" is sinf/cosf; the QP's
+// three reciprocals are IEEE divisions (no --use_fast_math). nvcc
+// contracts a*b+c into FMAs, so the kernel agrees with its plain version
+// to solver tolerance, not bit for bit.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "tiles.cuh"
+
+namespace mega {
+
+// packed-parameter rows (kernels/pack.py)
+enum {
+  P_WCTE = 0, P_WETH, P_WVEL, P_WANG, P_WACC, P_WDANG, P_WDACC,
+  P_RVEL, P_RCTE, P_RETH, P_DT, P_LF, N_PAR
+};
+
+struct Args {
+  const float* z0;    // (6, B)
+  const float* cf;    // (P, B)
+  const float* par;   // (12, B)
+  const float* lb;    // (2, B)
+  const float* ub;    // (2, B)
+  const float* u0;    // (T, 2, B)
+  float* ss;          // (T+1, 8, B) out
+  float* us;          // (T, 2, B) out
+  float* cost;        // (B,) out
+  float* conv;
+  float* iters;
+  float* gnorm;
+  float* mu;
+  float* done;
+  float* traj_s;      // (2, T+1, 6, B) scratch
+  float* traj_u;      // (2, T, 2, B)
+  float* traj_g;      // (T, 4, B)
+  float* ks;          // (T, 2, B)
+  float* Ks;          // (T, 2, 8, B)
+  int P, B, T, max_iters;
+  float sign, tol_grad, tol_cost_eff, mu_min, mu_max, mu_factor, ddp_gate;
+};
+
+// Per-thread view of the batch-minor scratch buffers.
+struct Lane {
+  float *ts, *tu, *tg, *tk, *tK;
+  size_t B, lane;
+  int T;
+  __device__ float* s(int buf, int t, int r) const {
+    return ts + (size_t)((buf * (T + 1) + t) * 6 + r) * B + lane;
+  }
+  __device__ float* u(int buf, int t, int m) const {
+    return tu + (size_t)((buf * T + t) * 2 + m) * B + lane;
+  }
+  __device__ float* g(int t, int r) const {
+    return tg + (size_t)(t * 4 + r) * B + lane;
+  }
+  __device__ float* k(int t, int m) const {
+    return tk + (size_t)(t * 2 + m) * B + lane;
+  }
+  __device__ float* K(int t, int m, int j) const {
+    return tK + (size_t)((t * 2 + m) * 8 + j) * B + lane;
+  }
+  // Full 8-row augmented state at knot t: six stored rows plus the
+  // previous control from traj_u[buf][t-1]. A select at t = 0, not a
+  // multiply: 0 * NaN from scratch would poison the state.
+  __device__ void read_s(int buf, int t, float (&s8)[8]) const {
+#pragma unroll
+    for (int r = 0; r < 6; ++r) s8[r] = *s(buf, t, r);
+    if (t >= 1) {
+      s8[6] = *u(buf, t - 1, 0);
+      s8[7] = *u(buf, t - 1, 1);
+    } else {
+      s8[6] = 0.0f;
+      s8[7] = 0.0f;
+    }
+  }
+};
+
+// Per-scenario constants of the cost and dynamics.
+struct Problem {
+  float c[kPMax];
+  int P;
+  float dt, sign;
+  float wcte, weth, wvel, wang, wacc, wdang, wdacc;
+  float rc, re, rv;
+
+  __device__ void dyn_step(const float (&s)[8], float u0, float u1, float ct,
+                           float st, float se, float (&sn)[8]) const {
+    const float f0 = polyval(c, P, s[0]);
+    const float dth = u0 * dt;
+    sn[0] = s[0] + s[3] * ct * dt;
+    sn[1] = s[1] + s[3] * st * dt;
+    sn[2] = s[2] + dth;
+    sn[3] = s[3] + u1 * dt;
+    sn[4] = (f0 - s[1]) + sign * s[3] * se * dt;
+    sn[5] = s[5] + dth;
+    sn[6] = u0;
+    sn[7] = u1;
+  }
+
+  __device__ float stage_cost(const float (&s)[8], float u0, float u1,
+                              float rate) const {
+    const float du0 = u0 - s[6];
+    const float du1 = u1 - s[7];
+    const float e4 = s[4] - rc, e5 = s[5] - re, e3 = s[3] - rv;
+    return wcte * (e4 * e4) + weth * (e5 * e5) + wvel * (e3 * e3) +
+           wang * (u0 * u0) + wacc * (u1 * u1) +
+           rate * (wdang * (du0 * du0) + wdacc * (du1 * du1));
+  }
+
+  __device__ float term_cost(const float (&s)[8]) const {
+    const float e4 = s[4] - rc, e5 = s[5] - re, e3 = s[3] - rv;
+    return wcte * (e4 * e4) + weth * (e5 * e5) + wvel * (e3 * e3);
+  }
+};
+
+// Rollout trigonometry. Every rollout starts from the same pinned s0 and
+// theta / etheta advance by the same u0*dt, so etheta_t = theta_t + phi
+// with phi fixed for the whole solve. FAST carries cos/sin(theta) by
+// rotation composition: a 9th/8th-order Taylor increment plus one Newton
+// renormalization, with the constants as the reference's f32 values.
+template <bool FAST>
+struct Trig {
+  float cphi, sphi;
+  __device__ float se(float ct, float st, float eth) const {
+    return FAST ? st * cphi + ct * sphi : sinf(eth);
+  }
+  __device__ float ce(float ct, float st, float eth) const {
+    return FAST ? ct * cphi - st * sphi : cosf(eth);
+  }
+  __device__ void step(float& ct, float& st, float d, float th_next) const {
+    if (FAST) {
+      const float z = d * d;
+      const float sd =
+          d * (1.0f +
+               z * ((float)(-1.0 / 6.0) +
+                    z * ((float)(1.0 / 120.0) +
+                         z * ((float)(-1.0 / 5040.0) +
+                              z * (float)(1.0 / 362880.0)))));
+      const float cd =
+          1.0f + z * (-0.5f + z * ((float)(1.0 / 24.0) +
+                                   z * ((float)(-1.0 / 720.0) +
+                                        z * (float)(1.0 / 40320.0))));
+      const float c2 = ct * cd - st * sd;
+      const float s2 = st * cd + ct * sd;
+      const float f = 1.5f - 0.5f * (c2 * c2 + s2 * s2);
+      ct = c2 * f;
+      st = s2 * f;
+    } else {
+      ct = cosf(th_next);
+      st = sinf(th_next);
+    }
+  }
+};
+
+// Closed-loop control of a rollout at knot t: u = u_b + alpha k + K ds,
+// clipped. K column 4 is structurally zero; the sum runs over
+// j = 0, 1, 2, 3, 5, 6, 7 in that order.
+__device__ __forceinline__ float feedback(float ub, float alpha, float k,
+                                          const float (&Km)[8],
+                                          const float (&ds)[8]) {
+  float sum = Km[0] * ds[0];
+  sum = sum + Km[1] * ds[1];
+  sum = sum + Km[2] * ds[2];
+  sum = sum + Km[3] * ds[3];
+  sum = sum + Km[5] * ds[5];
+  sum = sum + Km[6] * ds[6];
+  sum = sum + Km[7] * ds[7];
+  return ub + alpha * k + sum;
+}
+
+template <int NLS, bool DDP, bool FAST, bool ADAPT>
+__global__ void __launch_bounds__(128)
+    solve_mega_kernel(const Args a) {
+  const int lane_i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane_i >= a.B) return;
+  const size_t B = a.B;
+  const int T = a.T;
+  const Lane L{a.traj_s, a.traj_u, a.traj_g, a.ks, a.Ks, B, (size_t)lane_i, T};
+
+  float par[N_PAR];
+#pragma unroll
+  for (int r = 0; r < N_PAR; ++r) par[r] = a.par[r * B + lane_i];
+  Problem pr;
+  pr.P = a.P;
+#pragma unroll
+  for (int i = 0; i < kPMax; ++i)
+    pr.c[i] = i < a.P ? a.cf[i * B + lane_i] : 0.0f;
+  const float dt = par[P_DT];
+  const float sign = a.sign;
+  pr.dt = dt;
+  pr.sign = sign;
+  pr.wcte = par[P_WCTE];
+  pr.weth = par[P_WETH];
+  pr.wvel = par[P_WVEL];
+  pr.wang = par[P_WANG];
+  pr.wacc = par[P_WACC];
+  pr.wdang = par[P_WDANG];
+  pr.wdacc = par[P_WDACC];
+  pr.rc = par[P_RCTE];
+  pr.re = par[P_RETH];
+  pr.rv = par[P_RVEL];
+  const float lb0 = a.lb[lane_i], lb1 = a.lb[B + lane_i];
+  const float ub0 = a.ub[lane_i], ub1 = a.ub[B + lane_i];
+
+  const float wv2 = 2.0f * pr.wvel;
+  const float wc2 = 2.0f * pr.wcte;
+  const float we2 = 2.0f * pr.weth;
+  const float ww2 = 2.0f * pr.wang;
+  const float wa2 = 2.0f * pr.wacc;
+  // one-sided weight-scale equivariance: s = max(1, sum(w)/470) scales the
+  // mu floor/ceiling and the relative-cost guards; pg is measured as 1/s
+  float wscl, inv_wscl, mu_lo, mu_hi;
+  if (ADAPT) {
+    wscl = fmaxf((pr.wcte + pr.weth + pr.wvel + pr.wang + pr.wacc +
+                  pr.wdang + pr.wdacc) * (float)(1.0 / 470.0),
+                 1.0f);
+    inv_wscl = 1.0f / wscl;
+    mu_lo = a.mu_min * wscl;
+    mu_hi = a.mu_max * wscl;
+  } else {
+    wscl = 1.0f;
+    inv_wscl = 1.0f;
+    mu_lo = a.mu_min;
+    mu_hi = a.mu_max;
+  }
+
+  float s0[8];
+#pragma unroll
+  for (int r = 0; r < 6; ++r) s0[r] = a.z0[r * B + lane_i];
+  s0[6] = 0.0f;
+  s0[7] = 0.0f;
+  const float ct00 = cosf(s0[2]);
+  const float st00 = sinf(s0[2]);
+  Trig<FAST> trig{1.0f, 0.0f};
+  if (FAST) {
+    const float phi = s0[5] - s0[2];
+    trig.cphi = cosf(phi);
+    trig.sphi = sinf(phi);
+  }
+
+  // ---------------- initial rollout into buffer 0 ----------------------
+#pragma unroll
+  for (int r = 0; r < 6; ++r) *L.s(0, 0, r) = s0[r];
+  float cost;
+  {
+    float s[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) s[r] = s0[r];
+    float acc = 0.0f, ct = ct00, st = st00;
+    for (int t = 0; t < T; ++t) {
+      const float u0 = a.u0[(size_t)(t * 2) * B + lane_i];
+      const float u1 = a.u0[(size_t)(t * 2 + 1) * B + lane_i];
+      *L.u(0, t, 0) = u0;
+      *L.u(0, t, 1) = u1;
+      const float rate = t >= 1 ? 1.0f : 0.0f;
+      acc = acc + pr.stage_cost(s, u0, u1, rate);
+      const float se = trig.se(ct, st, s[5]);
+      *L.g(t, 0) = ct;
+      *L.g(t, 1) = st;
+      *L.g(t, 2) = se;
+      *L.g(t, 3) = trig.ce(ct, st, s[5]);
+      float sn[8];
+      pr.dyn_step(s, u0, u1, ct, st, se, sn);
+#pragma unroll
+      for (int r = 0; r < 6; ++r) *L.s(0, t + 1, r) = sn[r];
+      trig.step(ct, st, u0 * dt, sn[2]);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) s[r] = sn[r];
+    }
+    cost = acc + pr.term_cost(s);
+  }
+
+  // ---------------- SQP loop -------------------------------------------
+  float mu = mu_lo, n_small = 0.0f, done = 0.0f, conv = 0.0f;
+  float gnorm = INFINITY, iters = 0.0f;
+  int cur = 0;
+  for (int it = 0; it < a.max_iters && done < 0.5f; ++it) {
+    const float act = 1.0f - done;
+    // gnorm starts at +inf, so the first iteration is pure GN
+    const float g_ddp = (DDP && gnorm < a.ddp_gate) ? 1.0f : 0.0f;
+
+    // ---- backward scan with inline linearization ----
+    float Vs[8], V[8][8];
+    {
+      float sT[8];
+      L.read_s(cur, T, sT);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        Vs[i] = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) V[i][j] = 0.0f;
+      }
+      Vs[3] = wv2 * (sT[3] - pr.rv);
+      Vs[4] = wc2 * (sT[4] - pr.rc);
+      Vs[5] = we2 * (sT[5] - pr.re);
+      V[3][3] = wv2;
+      V[5][5] = we2;
+    }
+    float dv1 = 0.0f, dv2 = 0.0f, pg = 0.0f;
+    for (int t = T - 1; t >= 0; --t) {
+      float s_t[8];
+      L.read_s(cur, t, s_t);
+      const float ut0 = *L.u(cur, t, 0), ut1 = *L.u(cur, t, 1);
+      const float rate = t >= 1 ? 1.0f : 0.0f;
+      const float x = s_t[0], v = s_t[3], eth = s_t[5];
+      const float ct = *L.g(t, 0), st = *L.g(t, 1);
+      const float se = *L.g(t, 2), ce = *L.g(t, 3);
+      const float fp = polyder(pr.c, pr.P, x);
+      const float a02 = -v * st * dt;
+      const float a03 = ct * dt;
+      const float a12 = v * ct * dt;
+      const float a13 = st * dt;
+      const float a40 = fp;
+      const float a43 = sign * se * dt;
+      const float a45 = sign * v * ce * dt;
+      const float b20 = dt;
+
+      const float wdw2 = 2.0f * rate * pr.wdang;
+      const float wda2 = 2.0f * rate * pr.wdacc;
+      const float du0 = ut0 - s_t[6];
+      const float du1 = ut1 - s_t[7];
+      const float lu0 = ww2 * ut0 + wdw2 * du0;
+      const float lu1 = wa2 * ut1 + wda2 * du1;
+      // Qs = l_s + A' Vs (A column 4 zero; rows 4, 6, 7 of A'Vs zero)
+      float Qs[8];
+      Qs[0] = Vs[0] + a40 * Vs[4];
+      Qs[1] = Vs[1] - Vs[4];
+      Qs[2] = a02 * Vs[0] + a12 * Vs[1] + Vs[2];
+      Qs[3] = wv2 * (v - pr.rv) +
+              (a03 * Vs[0] + a13 * Vs[1] + Vs[3] + a43 * Vs[4]);
+      Qs[4] = wc2 * (s_t[4] - pr.rc);
+      Qs[5] = we2 * (eth - pr.re) + (a45 * Vs[4] + Vs[5]);
+      Qs[6] = -wdw2 * du0;
+      Qs[7] = -wda2 * du1;
+      const float Qu0 = lu0 + (b20 * (Vs[2] + Vs[5]) + Vs[6]);
+      const float Qu1 = lu1 + (dt * Vs[3] + Vs[7]);
+
+      // structured VA = V @ A, column j in {0, 1, 2, 3, 5}: va[j][i]
+      float va[6][8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (i == 4) continue;
+        va[0][i] = V[i][0];
+        va[1][i] = V[i][1];
+        va[2][i] = a02 * V[i][0] + a12 * V[i][1] + V[i][2];
+        va[3][i] = a03 * V[i][0] + a13 * V[i][1] + V[i][3];
+        va[5][i] = V[i][5];
+      }
+      va[0][4] = a40 * wc2;
+      va[1][4] = -wc2;
+      va[3][4] = a43 * wc2;
+      va[5][4] = a45 * wc2;
+
+      // (A' V A)[i][j] for live i, j (column 2 of va has no row 4)
+      auto atva = [&](int i, int j) -> float {
+        const float* y = va[j];
+        const bool h4 = j != 2;
+        switch (i) {
+          case 0: return h4 ? y[0] + a40 * y[4] : y[0];
+          case 1: return h4 ? y[1] - y[4] : y[1];
+          case 2: return a02 * y[0] + a12 * y[1] + y[2];
+          case 3: {
+            const float e = a03 * y[0] + a13 * y[1] + y[3];
+            return h4 ? e + a43 * y[4] : e;
+          }
+          default: return h4 ? a45 * y[4] + y[5] : y[5];  // i == 5
+        }
+      };
+
+      // exact second-order dynamics terms (gated per lane)
+      float d00 = 0.0f, d22 = 0.0f, d23 = 0.0f, d35 = 0.0f, d55 = 0.0f;
+      if (DDP) {
+        const float fpp = polyder2(pr.c, pr.P, x);
+        d00 = Vs[4] * fpp * g_ddp;
+        d22 = -v * dt * (Vs[0] * ct + Vs[1] * st) * g_ddp;
+        d23 = dt * (Vs[1] * ct - Vs[0] * st) * g_ddp;
+        d35 = sign * dt * ce * Vs[4] * g_ddp;
+        d55 = -sign * dt * v * se * Vs[4] * g_ddp;
+      }
+
+      // Qus = B' V A + l_us (column 4 zero; columns 6/7 rate coupling)
+      float qus0[8], qus1[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        qus0[j] = 0.0f;
+        qus1[j] = 0.0f;
+        if (j == 0 || j == 1 || j == 2 || j == 3 || j == 5) {
+          qus0[j] = b20 * (va[j][2] + va[j][5]) + va[j][6];
+          qus1[j] = dt * va[j][3] + va[j][7];
+        }
+      }
+      qus0[6] = -wdw2;
+      qus1[7] = -wda2;
+
+      // Quu = B' V B + l_uu, symmetrized
+      float VB0[8], VB1[8];
+#pragma unroll
+      for (int i = 2; i < 8; ++i) {
+        if (i == 4) continue;
+        VB0[i] = b20 * (V[i][2] + V[i][5]) + V[i][6];
+        VB1[i] = dt * V[i][3] + V[i][7];
+      }
+      const float btvb00 = b20 * (VB0[2] + VB0[5]) + VB0[6];
+      const float btvb01 = b20 * (VB1[2] + VB1[5]) + VB1[6];
+      const float btvb10 = dt * VB0[3] + VB0[7];
+      const float btvb11 = dt * VB1[3] + VB1[7];
+      const float offd = 0.5f * (btvb01 + btvb10);
+      const float q00 = btvb00 + ww2 + wdw2;
+      const float q11 = btvb11 + wa2 + wda2;
+
+      float k0, k1, j00, j01, j10, j11;
+      boxqp(q00 + mu, offd, offd, q11 + mu, Qu0, Qu1, lb0 - ut0, lb1 - ut1,
+            ub0 - ut0, ub1 - ut1, k0, k1, j00, j01, j10, j11);
+      float K0[8], K1[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        K0[j] = -(j00 * qus0[j] + j01 * qus1[j]);
+        K1[j] = -(j10 * qus0[j] + j11 * qus1[j]);
+      }
+
+      const float quk0 = q00 * k0 + offd * k1;
+      const float quk1 = offd * k0 + q11 * k1;
+      const float ku0 = quk0 + Qu0;
+      const float ku1 = quk1 + Qu1;
+      // Vs_n = Qs + K'(Quu k + Qu) + Qus' k
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        Vs[i] = Qs[i] + (K0[i] * ku0 + K1[i] * ku1) +
+                (qus0[i] * k0 + qus1[i] * k1);
+      }
+
+      // Vss_n = Qss + K'Quu K + K'Qus + (K'Qus)': upper triangle, mirrored;
+      // row/column 4 stays diag(wc2) and is not stored
+      auto cross = [&](int i, int j) -> float {
+        if (j == 6) return K0[i] * qus0[6];
+        if (j == 7) return K1[i] * qus1[7];
+        return K0[i] * qus0[j] + K1[i] * qus1[j];
+      };
+      float Vn[8][8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (i == 4) continue;
+#pragma unroll
+        for (int j = i; j < 8; ++j) {
+          if (j == 4) continue;
+          const bool li = i != 6 && i != 7;
+          const bool lj = j != 6 && j != 7;
+          bool has_q = false;
+          float q = 0.0f;
+          if (li && lj) {
+            q = atva(i, j);
+            has_q = true;
+          }
+          if (i == j) {
+            if (i == 3) q = q + wv2;
+            if (i == 5) q = q + we2;
+            if (i == 6) { q = wdw2; has_q = true; }
+            if (i == 7) { q = wda2; has_q = true; }
+          }
+          if (DDP) {
+            if (i == 0 && j == 0) q = q + d00;
+            if (i == 2 && j == 2) q = q + d22;
+            if (i == 2 && j == 3) q = q + d23;
+            if (i == 3 && j == 5) q = q + d35;
+            if (i == 5 && j == 5) q = q + d55;
+          }
+          const float ktk0 = K0[i] * q00 + K1[i] * offd;
+          const float ktk1 = K0[i] * offd + K1[i] * q11;
+          const float ktk = ktk0 * K0[j] + ktk1 * K1[j];
+          const float e = (has_q ? q + ktk : ktk) + cross(i, j) + cross(j, i);
+          Vn[i][j] = e;
+          Vn[j][i] = e;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (i == 4) continue;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (j == 4) continue;
+          V[i][j] = Vn[i][j];
+        }
+      }
+
+      *L.k(t, 0) = k0;
+      *L.k(t, 1) = k1;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        *L.K(t, 0, j) = K0[j];
+        *L.K(t, 1, j) = K1[j];
+      }
+      dv1 = dv1 + k0 * Qu0 + k1 * Qu1;
+      dv2 = dv2 + 0.5f * (k0 * quk0 + k1 * quk1);
+      // pg on the weight-scale-normalized gradient
+      const float pg_t =
+          fmaxf(fabsf(ut0 - clampf(ut0 - Qu0 * inv_wscl, lb0, ub0)),
+                fabsf(ut1 - clampf(ut1 - Qu1 * inv_wscl, lb1, ub1)));
+      pg = fmaxf(pg, pg_t);
+    }
+
+    const float pred_decrease = -(dv1 + dv2);
+    // relative-cost guards tol*(s + |J|)
+    const float tiny_model =
+        pred_decrease <= a.tol_cost_eff * (wscl + fabsf(cost)) ? 1.0f : 0.0f;
+
+    // ---- multi-alpha line search ----
+    float S[NLS][8], accs[NLS], cts[NLS], sts[NLS];
+#pragma unroll
+    for (int al = 0; al < NLS; ++al) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) S[al][r] = s0[r];
+      accs[al] = 0.0f;
+      cts[al] = ct00;
+      sts[al] = st00;
+    }
+    for (int t = 0; t < T; ++t) {
+      float s_b[8], Km0[8], Km1[8];
+      L.read_s(cur, t, s_b);
+      const float ub_0 = *L.u(cur, t, 0), ub_1 = *L.u(cur, t, 1);
+      const float k0 = *L.k(t, 0), k1 = *L.k(t, 1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j == 4) {
+          Km0[j] = Km1[j] = 0.0f;
+          continue;
+        }
+        Km0[j] = *L.K(t, 0, j);
+        Km1[j] = *L.K(t, 1, j);
+      }
+      const float rate = t >= 1 ? 1.0f : 0.0f;
+#pragma unroll
+      for (int al = 0; al < NLS; ++al) {
+        const float alpha = 1.0f / (float)(1 << al);
+        float ds[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) ds[j] = S[al][j] - s_b[j];
+        const float u0 = clampf(feedback(ub_0, alpha, k0, Km0, ds), lb0, ub0);
+        const float u1 = clampf(feedback(ub_1, alpha, k1, Km1, ds), lb1, ub1);
+        accs[al] = accs[al] + pr.stage_cost(S[al], u0, u1, rate);
+        const float se = trig.se(cts[al], sts[al], S[al][5]);
+        float sn[8];
+        pr.dyn_step(S[al], u0, u1, cts[al], sts[al], se, sn);
+        trig.step(cts[al], sts[al], u0 * dt, sn[2]);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) S[al][r] = sn[r];
+      }
+    }
+    // the first (largest) alpha that lowers the cost wins
+    float picked = 0.0f, alpha_sel = 0.0f, cost_sel = cost;
+#pragma unroll
+    for (int al = 0; al < NLS; ++al) {
+      const float cost_a = accs[al] + pr.term_cost(S[al]);
+      const float improved = cost_a < cost ? 1.0f : 0.0f;
+      const float take = improved * (1.0f - fminf(picked, 1.0f));
+      picked = picked + take;
+      alpha_sel = alpha_sel + take * (1.0f / (float)(1 << al));
+      cost_sel = take > 0.5f ? cost_a : cost_sel;
+    }
+    const float accepted = fminf(picked, 1.0f);
+    const float upd = accepted * act;
+    const float keep = 1.0f - upd;
+
+    // ---- winner re-roll into the other buffer (masked blend) ----
+    const int nxt = 1 - cur;
+#pragma unroll
+    for (int r = 0; r < 6; ++r) *L.s(nxt, 0, r) = s0[r];
+    {
+      float sa[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) sa[r] = s0[r];
+      float ct = ct00, st = st00;
+      for (int t = 0; t < T; ++t) {
+        float s_b[8], Km0[8], Km1[8];
+        L.read_s(cur, t, s_b);
+        const float ub_0 = *L.u(cur, t, 0), ub_1 = *L.u(cur, t, 1);
+        const float k0 = *L.k(t, 0), k1 = *L.k(t, 1);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (j == 4) {
+            Km0[j] = Km1[j] = 0.0f;
+            continue;
+          }
+          Km0[j] = *L.K(t, 0, j);
+          Km1[j] = *L.K(t, 1, j);
+        }
+        float ds[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) ds[j] = sa[j] - s_b[j];
+        const float u0 =
+            clampf(feedback(ub_0, alpha_sel, k0, Km0, ds), lb0, ub0);
+        const float u1 =
+            clampf(feedback(ub_1, alpha_sel, k1, Km1, ds), lb1, ub1);
+        const float se = trig.se(ct, st, sa[5]);
+        const float gn[4] = {ct, st, se, trig.ce(ct, st, sa[5])};
+        // the trig cache blends like the states it describes; in place is
+        // safe (nothing reads knot t again before the next backward pass)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          float* gp = L.g(t, r);
+          *gp = upd * gn[r] + keep * *gp;
+        }
+        float sn[8];
+        pr.dyn_step(sa, u0, u1, ct, st, se, sn);
+        *L.u(nxt, t, 0) = upd * u0 + keep * ub_0;
+        *L.u(nxt, t, 1) = upd * u1 + keep * ub_1;
+#pragma unroll
+        for (int r = 0; r < 6; ++r)
+          *L.s(nxt, t + 1, r) = upd * sn[r] + keep * *L.s(cur, t + 1, r);
+        trig.step(ct, st, u0 * dt, sn[2]);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) sa[r] = sn[r];
+      }
+    }
+    const float cost2 = upd > 0.5f ? cost_sel : cost;
+
+    // ---- per-lane bookkeeping ----
+    const bool on = act > 0.5f;
+    const float mu2 = upd > 0.5f ? fmaxf(mu / a.mu_factor, mu_lo)
+                      : on       ? fminf(mu * a.mu_factor, mu_hi)
+                                 : mu;
+    const float small_step =
+        accepted *
+        (fabsf(cost - cost2) <= a.tol_cost_eff * (wscl + fabsf(cost)) ? 1.0f
+                                                                      : 0.0f);
+    const float n_small2 =
+        on ? (small_step > 0.5f ? n_small + 1.0f : 0.0f) : n_small;
+    // a tiny predicted decrease certifies only with the trust region open;
+    // under inflated mu it is a stall only if the step was also rejected
+    const float mu_open = mu <= mu_lo * a.mu_factor ? 1.0f : 0.0f;
+    const float converged_now =
+        fmaxf(fmaxf(pg < a.tol_grad ? 1.0f : 0.0f, n_small2 >= 2.0f ? 1.0f : 0.0f),
+              tiny_model * mu_open);
+    const float stalled =
+        fmaxf((1.0f - accepted) * (mu2 >= mu_hi ? 1.0f : 0.0f),
+              tiny_model * (1.0f - mu_open) * (1.0f - accepted));
+    done = on ? fmaxf(converged_now, stalled) : done;
+    conv = on ? converged_now : conv;
+    gnorm = on ? pg : gnorm;
+    iters = iters + act;
+    cost = cost2;
+    mu = mu2;
+    n_small = n_small2;
+    cur = nxt;
+  }
+
+  // ---------------- outputs --------------------------------------------
+  for (int t = 0; t <= T; ++t) {
+    float s8[8];
+    L.read_s(cur, t, s8);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) a.ss[(size_t)(t * 8 + r) * B + lane_i] = s8[r];
+    if (t < T) {
+      a.us[(size_t)(t * 2) * B + lane_i] = *L.u(cur, t, 0);
+      a.us[(size_t)(t * 2 + 1) * B + lane_i] = *L.u(cur, t, 1);
+    }
+  }
+  a.cost[lane_i] = cost;
+  a.conv[lane_i] = conv;
+  a.iters[lane_i] = iters;
+  a.gnorm[lane_i] = gnorm;
+  a.mu[lane_i] = mu;
+  a.done[lane_i] = done;
+}
+
+}  // namespace mega
+
+// Each build instantiates one variant of the template, chosen by these
+// macros (kernels/_build.py passes them; the defaults are the production
+// N=30 configuration).
+#ifndef MEGA_NLS
+#define MEGA_NLS 4
+#endif
+#ifndef MEGA_DDP
+#define MEGA_DDP 1
+#endif
+#ifndef MEGA_FAST
+#define MEGA_FAST 1
+#endif
+#ifndef MEGA_ADAPT
+#define MEGA_ADAPT 1
+#endif
+
+// Error code for a request of a variant this library was not built for.
+#define MEGA_ERR_VARIANT 100000
+
+extern "C" int mpc_solve_mega_f32(
+    const void* z0, const void* cf, const void* par, const void* lb,
+    const void* ub, const void* u0, void* ss, void* us, void* cost,
+    void* conv, void* iters, void* gnorm, void* mu, void* done,
+    void* traj_s, void* traj_u, void* traj_g, void* ks, void* Ks, int P,
+    int B, int T, int max_iters, float sign, float tol_grad,
+    float tol_cost_eff, float mu_min, float mu_max, float mu_factor,
+    float ddp_gate, int n_ls, int ddp, int fast, int adaptive,
+    void* stream) {
+  if (n_ls != MEGA_NLS || (ddp != 0) != (MEGA_DDP != 0) ||
+      (fast != 0) != (MEGA_FAST != 0) ||
+      (adaptive != 0) != (MEGA_ADAPT != 0))
+    return MEGA_ERR_VARIANT;
+  mega::Args a;
+  a.z0 = static_cast<const float*>(z0);
+  a.cf = static_cast<const float*>(cf);
+  a.par = static_cast<const float*>(par);
+  a.lb = static_cast<const float*>(lb);
+  a.ub = static_cast<const float*>(ub);
+  a.u0 = static_cast<const float*>(u0);
+  a.ss = static_cast<float*>(ss);
+  a.us = static_cast<float*>(us);
+  a.cost = static_cast<float*>(cost);
+  a.conv = static_cast<float*>(conv);
+  a.iters = static_cast<float*>(iters);
+  a.gnorm = static_cast<float*>(gnorm);
+  a.mu = static_cast<float*>(mu);
+  a.done = static_cast<float*>(done);
+  a.traj_s = static_cast<float*>(traj_s);
+  a.traj_u = static_cast<float*>(traj_u);
+  a.traj_g = static_cast<float*>(traj_g);
+  a.ks = static_cast<float*>(ks);
+  a.Ks = static_cast<float*>(Ks);
+  a.P = P;
+  a.B = B;
+  a.T = T;
+  a.max_iters = max_iters;
+  a.sign = sign;
+  a.tol_grad = tol_grad;
+  a.tol_cost_eff = tol_cost_eff;
+  a.mu_min = mu_min;
+  a.mu_max = mu_max;
+  a.mu_factor = mu_factor;
+  a.ddp_gate = ddp_gate;
+  const int threads = 128;
+  const int blocks = (B + threads - 1) / threads;
+  mega::solve_mega_kernel<MEGA_NLS, MEGA_DDP != 0, MEGA_FAST != 0,
+                          MEGA_ADAPT != 0>
+      <<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* mpc_cuda_error_string(int err) {
+  if (err == MEGA_ERR_VARIANT)
+    return "library built for another (n_ls, ddp, fast, adaptive) variant";
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

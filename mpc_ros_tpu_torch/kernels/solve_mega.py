@@ -1,0 +1,630 @@
+"""The whole batched SQP solve in one kernel: the hand-written Hopper
+kernel (`csrc/solve_mega.cu`) and its plain PyTorch version.
+
+Counterpart of `mpc_ros_tpu/kernels/solve_pallas.py` (`_kernel`, launched
+by `solve_pallas` and scheduled by `solve_pallas_scheduled`). One call
+runs the complete control-limited SQP loop for every scenario: the
+initial rollout, then per iteration the inline-linearized Riccati
+backward scan with gated DDP terms and an exact 2-D box QP per stage,
+`n_ls` parallel line-search rollouts (alpha = 0.5^j, the first — largest
+— alpha that lowers the cost wins), the masked winner re-roll, and the
+per-lane mu / convergence / stall bookkeeping.
+
+Inputs are batch-last: zT (6, B), cT (P, B), params (12, B) from
+`pack.pack_params`, lb/ub (2, B), u0 (T, 2, B). Outputs are
+(ss (T+1, 8, B), us (T, 2, B), cost, conv, iters, gnorm, mu, done), each
+of the last six (B,).
+
+This slice covers the diff-drive solve with `done_frac == 1`, ddp on or
+off, fast or exact trig, `scale_adaptive` on or off and per-lane
+parameters. Resume state, `done_frac < 1`, per-knot setpoints, blobs and
+the bicycle family are ROADMAP Queue 2, K1 stages (d)-(g).
+
+`solve_mega` sends CPU tensors to `solve_mega_plain` and CUDA tensors to
+`solve_mega_cuda`, which launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from . import tiles
+from .pack import (N_PAR, P_DT, P_RCTE, P_RETH, P_RVEL, P_WACC, P_WANG,
+                   P_WCTE, P_WDACC, P_WDANG, P_WETH, P_WVEL)
+
+_N = 8
+_M = 2
+
+# launches of the CUDA kernel by `solve_mega_cuda` (and nowhere else)
+launches = 0
+
+_PENDING = ("ROADMAP Queue 2, K1 stages (d)-(g): resume/done_frac with "
+            "the compact schedule, blobs, refs, bicycle")
+
+
+@dataclasses.dataclass(frozen=True)
+class Knobs:
+    """The solver constants the kernel is specialized or parameterized
+    on, resolved from a SolverConfig for one compute dtype exactly as
+    `solve_pallas` resolves them."""
+
+    T: int
+    n_ls: int
+    max_iters: int
+    sign: float
+    tol_grad: float
+    tol_cost_eff: float
+    mu_min: float
+    mu_max: float
+    mu_factor: float
+    ddp: bool
+    ddp_gate: float
+    fast_trig: bool
+    adaptive: bool
+
+    @property
+    def variant(self) -> tuple:
+        """The kernel's template arguments (n_ls, ddp, fast, adaptive)."""
+        return (self.n_ls, self.ddp, self.fast_trig, self.adaptive)
+
+
+def resolve_knobs(cfg, dtype) -> Knobs:
+    if cfg.model != "diff_drive":
+        raise NotImplementedError(
+            f"solve_mega covers model='diff_drive' only, got "
+            f"{cfg.model!r} ({_PENDING})")
+    if cfg.done_frac < 1.0:
+        raise NotImplementedError(
+            f"solve_mega covers done_frac=1 only, got {cfg.done_frac} "
+            f"({_PENDING})")
+    if cfg.trig not in ("fast", "exact"):
+        raise ValueError(f"trig must be 'fast' or 'exact', got {cfg.trig!r}")
+    return Knobs(
+        T=cfg.n_controls,
+        n_ls=cfg.ls_for(dtype),
+        max_iters=int(cfg.max_sqp_iters),
+        sign=float(cfg.cte_vsin_sign),
+        tol_grad=float(cfg.tol_grad_for(dtype)),
+        tol_cost_eff=max(cfg.tol_cost, 10.0 * float(torch.finfo(dtype).eps)),
+        mu_min=float(cfg.mu_init_for(dtype, False)),
+        mu_max=float(cfg.mu_max),
+        mu_factor=float(cfg.mu_factor),
+        ddp=bool(cfg.ddp_for(dtype)),
+        ddp_gate=float(cfg.gate_for(False, dtype)),
+        fast_trig=cfg.trig == "fast",
+        adaptive=bool(cfg.scale_adaptive),
+    )
+
+
+def _check_inputs(zT, cT, pp, lb, ub, u0, T):
+    B = zT.shape[-1]
+    want = {"zT": (zT, (6, B)), "params": (pp, (N_PAR, B)),
+            "lb": (lb, (_M, B)), "ub": (ub, (_M, B)),
+            "u0": (u0, (T, _M, B))}
+    for name, (a, shape) in want.items():
+        if tuple(a.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got "
+                             f"{tuple(a.shape)}")
+    if cT.dim() != 2 or cT.shape[1] != B or cT.shape[0] < 1:
+        raise ValueError(f"cT: expected (P, {B}), got {tuple(cT.shape)}")
+    return B
+
+
+# --------------------------------------------------------------- plain
+
+
+def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg):
+    """The plain PyTorch version of the kernel: `_kernel` of
+    `solve_pallas.py` transcribed onto (B,)-vectors with the whole batch
+    as one tile — the same structured-sparsity products in the same
+    operation order, and an `act` mask so done lanes never update (with
+    done_frac = 1 a lane's result does not depend on its neighbours)."""
+    dtype = zT.dtype
+    kn = resolve_knobs(cfg, dtype)
+    T = kn.T
+    B = _check_inputs(zT, cT, pp, lb, ub, u0, T)
+    dev = zT.device
+    sign = kn.sign
+    n_alpha = kn.n_ls
+    par = [pp[i] for i in range(N_PAR)]
+    cf = cT
+    dt = par[P_DT]
+    zeros = torch.zeros(B, dtype=dtype, device=dev)
+    alphas = [0.5 ** j for j in range(n_alpha)]
+    alpha_col = torch.tensor(alphas, dtype=dtype, device=dev)[:, None]
+    lb0, lb1, ub0, ub1 = lb[0], lb[1], ub[0], ub[1]
+
+    wv2 = 2.0 * par[P_WVEL]
+    wc2 = 2.0 * par[P_WCTE]
+    we2 = 2.0 * par[P_WETH]
+    ww2 = 2.0 * par[P_WANG]
+    wa2 = 2.0 * par[P_WACC]
+    if kn.adaptive:
+        wscl = torch.clamp(
+            (par[P_WCTE] + par[P_WETH] + par[P_WVEL] + par[P_WANG]
+             + par[P_WACC] + par[P_WDANG] + par[P_WDACC]) * (1.0 / 470.0),
+            min=1.0)
+        inv_wscl = 1.0 / wscl
+        mu_lo = kn.mu_min * wscl
+        mu_hi = kn.mu_max * wscl
+    else:
+        wscl = 1.0
+        inv_wscl = 1.0
+        mu_lo = torch.full((B,), kn.mu_min, dtype=dtype, device=dev)
+        mu_hi = torch.full((B,), kn.mu_max, dtype=dtype, device=dev)
+    rc, re, rv = par[P_RCTE], par[P_RETH], par[P_RVEL]
+
+    def sq(a):
+        return a * a
+
+    def dyn_step(s, u0_, u1_, ct_, st_, se_):
+        x, y, th, v, cte, eth = s[:6]
+        f0 = tiles.polyval(cf, x)
+        dth = u0_ * dt
+        return [x + v * ct_ * dt, y + v * st_ * dt, th + dth,
+                v + u1_ * dt, (f0 - y) + sign * v * se_ * dt, eth + dth,
+                u0_, u1_]
+
+    def stage_cost(s, u0_, u1_, rate):
+        du0 = u0_ - s[6]
+        du1 = u1_ - s[7]
+        return (par[P_WCTE] * sq(s[4] - rc) + par[P_WETH] * sq(s[5] - re)
+                + par[P_WVEL] * sq(s[3] - rv) + par[P_WANG] * sq(u0_)
+                + par[P_WACC] * sq(u1_)
+                + rate * (par[P_WDANG] * sq(du0) + par[P_WDACC] * sq(du1)))
+
+    def term_cost(s):
+        return (par[P_WCTE] * sq(s[4] - rc) + par[P_WETH] * sq(s[5] - re)
+                + par[P_WVEL] * sq(s[3] - rv))
+
+    # rollout trigonometry: every rollout starts from the same pinned s0,
+    # and theta/etheta advance by the same u0*dt, so etheta_t = theta_t +
+    # phi with phi fixed for the whole solve (fast mode: rotation
+    # composition with a 9th/8th-order Taylor increment + one Newton
+    # renormalization; no transcendentals after the first four)
+    s0 = [zT[i] for i in range(6)] + [zeros, zeros]
+    ct00 = torch.cos(s0[2])
+    st00 = torch.sin(s0[2])
+    if kn.fast_trig:
+        phi = s0[5] - s0[2]
+        cphi = torch.cos(phi)
+        sphi = torch.sin(phi)
+
+        def se_of(ct, st, s):
+            return st * cphi + ct * sphi
+
+        def ce_of(ct, st, s):
+            return ct * cphi - st * sphi
+
+        def step_trig(ct, st, d, s_next):
+            z = d * d
+            sd = d * (1.0 + z * (-1.0 / 6.0 + z * (1.0 / 120.0
+                      + z * (-1.0 / 5040.0 + z * (1.0 / 362880.0)))))
+            cd = 1.0 + z * (-0.5 + z * (1.0 / 24.0
+                      + z * (-1.0 / 720.0 + z * (1.0 / 40320.0))))
+            c2 = ct * cd - st * sd
+            s2 = st * cd + ct * sd
+            f = 1.5 - 0.5 * (c2 * c2 + s2 * s2)
+            return c2 * f, s2 * f
+    else:
+        def se_of(ct, st, s):
+            return torch.sin(s[5])
+
+        def ce_of(ct, st, s):
+            return torch.cos(s[5])
+
+        def step_trig(ct, st, d, s_next):
+            return torch.cos(s_next[2]), torch.sin(s_next[2])
+
+    # trajectory buffers: traj_s/traj_u double-buffered (the winner
+    # re-roll at step t+1 still reads the OLD knot t+1), traj_g single
+    traj_s = [[None] * (T + 1) for _ in range(2)]
+    traj_u = [[None] * T for _ in range(2)]
+    traj_g = [None] * T
+    ks = [None] * T
+    Ks = [None] * T
+
+    def read_s(buf, t):
+        # rows 6-7 are the previous control; the pinned start has none
+        # (a select, never a multiply: 0 * NaN would poison the state)
+        pu = traj_u[buf][t - 1] if t >= 1 else (zeros, zeros)
+        return list(traj_s[buf][t]) + list(pu)
+
+    # ---- initial rollout into buffer 0 ----
+    traj_s[0][0] = s0[:6]
+    acc = zeros
+    ct, st = ct00, st00
+    for t in range(T):
+        s_a = read_s(0, t)
+        u0_, u1_ = u0[t, 0], u0[t, 1]
+        traj_u[0][t] = (u0_, u1_)
+        rate = 1.0 if t >= 1 else 0.0
+        acc = acc + stage_cost(s_a, u0_, u1_, rate)
+        se = se_of(ct, st, s_a)
+        traj_g[t] = (ct, st, se, ce_of(ct, st, s_a))
+        s_n = dyn_step(s_a, u0_, u1_, ct, st, se)
+        traj_s[0][t + 1] = s_n[:6]
+        ct, st = step_trig(ct, st, u0_ * dt, s_n)
+    cost = acc + term_cost(traj_s[0][T])
+
+    # ---- SQP loop ----
+    mu = mu_lo
+    n_small = zeros
+    done = zeros
+    conv = zeros
+    gnorm = torch.full((B,), float("inf"), dtype=dtype, device=dev)
+    iters = zeros
+    cur = 0
+    it = 0
+    lss_idx = (None, None, None, wv2, wc2, we2)
+    live = (0, 1, 2, 3, 5)
+
+    def zadd(*terms):
+        terms = [a for a in terms if a is not None]
+        if not terms:
+            return None
+        out = terms[0]
+        for a in terms[1:]:
+            out = out + a
+        return out
+
+    while it < kn.max_iters and bool((done < 0.5).any()):
+        act = 1.0 - done
+        g_ddp = (gnorm < kn.ddp_gate).to(dtype) if kn.ddp else None
+
+        # ---- backward scan with inline linearization ----
+        sT = traj_s[cur][T]
+        Vs = [zeros, zeros, zeros, wv2 * (sT[3] - rv), wc2 * (sT[4] - rc),
+              we2 * (sT[5] - re), zeros, zeros]
+        diagT = [zeros, zeros, zeros, wv2, wc2, we2, zeros, zeros]
+        Vss = [[diagT[i] if i == j else zeros for j in range(_N)]
+               for i in range(_N)]
+        dv1 = dv2 = pg = zeros
+        for t in range(T - 1, -1, -1):
+            s_t = read_s(cur, t)
+            u_t = traj_u[cur][t]
+            rate = 1.0 if t >= 1 else 0.0
+            x = s_t[0]
+            v = s_t[3]
+            eth = s_t[5]
+            ct, st, se, ce = traj_g[t]
+            fp = tiles.polyder(cf, x)
+            a02 = -v * st * dt
+            a03 = ct * dt
+            a12 = v * ct * dt
+            a13 = st * dt
+            a40 = fp
+            a43 = sign * se * dt
+            a45 = sign * v * ce * dt
+            b20 = dt
+
+            wdw2 = 2.0 * rate * par[P_WDANG]
+            wda2 = 2.0 * rate * par[P_WDACC]
+            du0 = u_t[0] - s_t[6]
+            du1 = u_t[1] - s_t[7]
+            ls = [zeros, zeros, zeros, wv2 * (v - rv), wc2 * (s_t[4] - rc),
+                  we2 * (eth - re), -wdw2 * du0, -wda2 * du1]
+            lu = [ww2 * u_t[0] + wdw2 * du0, wa2 * u_t[1] + wda2 * du1]
+            lss_diag = list(lss_idx) + [wdw2, wda2]
+            AtV = [Vs[0] + a40 * Vs[4], Vs[1] - Vs[4],
+                   a02 * Vs[0] + a12 * Vs[1] + Vs[2],
+                   a03 * Vs[0] + a13 * Vs[1] + Vs[3] + a43 * Vs[4],
+                   zeros, a45 * Vs[4] + Vs[5], zeros, zeros]
+            Qs = [ls[i] + AtV[i] for i in range(_N)]
+            Qu = [lu[0] + (b20 * (Vs[2] + Vs[5]) + Vs[6]),
+                  lu[1] + (dt * Vs[3] + Vs[7])]
+
+            # structured VA = Vss @ A per entry: column 4 of A is zero, so
+            # Vss row/col 4 is invariantly diag(wc2) and K/Qus column 4 is
+            # exactly zero; None marks structural zeros (ops dropped)
+            nrow = [i for i in range(_N) if i != 4]
+            va0 = [Vss[i][0] for i in range(_N)]
+            va0[4] = a40 * wc2
+            va1 = [Vss[i][1] for i in range(_N)]
+            va1[4] = -wc2
+            va2 = [None] * _N
+            va3 = [None] * _N
+            for i in nrow:
+                va2[i] = a02 * Vss[i][0] + a12 * Vss[i][1] + Vss[i][2]
+                va3[i] = a03 * Vss[i][0] + a13 * Vss[i][1] + Vss[i][3]
+            va3[4] = a43 * wc2
+            va5 = [Vss[i][5] for i in range(_N)]
+            va5[4] = a45 * wc2
+            va = {0: va0, 1: va1, 2: va2, 3: va3, 5: va5}
+
+            def atva(i, j):
+                y = va[j]
+                y4 = y[4]
+                if i == 0:
+                    return zadd(y[0], None if y4 is None else a40 * y4)
+                if i == 1:
+                    return zadd(y[1], None if y4 is None else -y4)
+                if i == 2:
+                    return zadd(a02 * y[0], a12 * y[1], y[2])
+                if i == 3:
+                    return zadd(a03 * y[0], a13 * y[1], y[3],
+                                None if y4 is None else a43 * y4)
+                return zadd(None if y4 is None else a45 * y4, y[5])
+
+            dmap = {}
+            if kn.ddp:
+                fpp = tiles.polyder2(cf, x)
+                dmap = {
+                    (0, 0): Vs[4] * fpp * g_ddp,
+                    (2, 2): -v * dt * (Vs[0] * ct + Vs[1] * st) * g_ddp,
+                    (2, 3): dt * (Vs[1] * ct - Vs[0] * st) * g_ddp,
+                    (3, 5): sign * dt * ce * Vs[4] * g_ddp,
+                    (5, 5): -sign * dt * v * se * Vs[4] * g_ddp,
+                }
+
+            def qss_entry(i, j):
+                e = atva(i, j) if (i in live and j in live) else None
+                if i == j and lss_diag[i] is not None:
+                    e = zadd(e, lss_diag[i])
+                return zadd(e, dmap.get((i, j) if i <= j else (j, i)))
+
+            qus0 = {j: zadd(b20 * zadd(va[j][2], va[j][5]), va[j][6])
+                    for j in live}
+            qus1 = {j: zadd(dt * va[j][3], va[j][7]) for j in live}
+            qus0[4] = qus1[4] = None
+            qus0[6], qus1[6] = -wdw2, None
+            qus0[7], qus1[7] = None, -wda2
+            Qus = torch.stack([
+                torch.stack([qus0[j] if qus0[j] is not None else zeros
+                             for j in range(_N)]),
+                torch.stack([qus1[j] if qus1[j] is not None else zeros
+                             for j in range(_N)]),
+            ])
+            VB = [[b20 * (Vss[i][2] + Vss[i][5]) + Vss[i][6],
+                   dt * Vss[i][3] + Vss[i][7]] for i in range(_N)]
+            BtVB = [[b20 * (VB[2][n] + VB[5][n]) + VB[6][n] for n in (0, 1)],
+                    [dt * VB[3][n] + VB[7][n] for n in (0, 1)]]
+            offd = 0.5 * (BtVB[0][1] + BtVB[1][0])
+            q00 = BtVB[0][0] + ww2 + wdw2
+            q11 = BtVB[1][1] + wa2 + wda2
+            Quu = torch.stack([torch.stack([q00, offd]),
+                               torch.stack([offd, q11])])
+            Quu_reg = torch.stack([torch.stack([q00 + mu, offd]),
+                                   torch.stack([offd, q11 + mu])])
+            u_t2 = torch.stack(list(u_t))
+            Qu2 = torch.stack(Qu)
+            k, K = tiles.boxqp(Quu_reg, Qu2, lb - u_t2, ub - u_t2, Qus)
+
+            Quu_k = tiles.mv(Quu, k, _M, _M)
+            ku = torch.stack([Quu_k[0] + Qu2[0], Quu_k[1] + Qu2[1]])
+            Vs_n = (torch.stack(Qs) + tiles.mtv(K, ku, _N, _M)
+                    + tiles.mtv(Qus, k, _N, _M))
+            KtQuu = tiles.mtm(K, Quu, _N, _M, _M)
+
+            def cross(i, j):
+                return zadd(
+                    None if qus0[j] is None else K[0, i] * qus0[j],
+                    None if qus1[j] is None else K[1, i] * qus1[j])
+
+            # Vss_n is symmetric: build the upper triangle and mirror;
+            # row/col 4 is structural (diag(wc2))
+            Vss_n = [[zeros] * _N for _ in range(_N)]
+            for i2 in range(_N):
+                for j2 in range(i2, _N):
+                    if i2 == 4 or j2 == 4:
+                        e = wc2 if i2 == j2 else zeros
+                    else:
+                        e = zadd(qss_entry(i2, j2),
+                                 KtQuu[i2, 0] * K[0, j2]
+                                 + KtQuu[i2, 1] * K[1, j2],
+                                 cross(i2, j2), cross(j2, i2))
+                    Vss_n[i2][j2] = e
+                    Vss_n[j2][i2] = e
+
+            ks[t] = k
+            Ks[t] = K
+            dv1 = dv1 + k[0] * Qu2[0] + k[1] * Qu2[1]
+            dv2 = dv2 + 0.5 * (k[0] * Quu_k[0] + k[1] * Quu_k[1])
+            # pg on the weight-scale-normalized gradient
+            pg_t = torch.maximum(
+                torch.abs(u_t[0] - torch.clamp(u_t[0] - Qu[0] * inv_wscl,
+                                               lb0, ub0)),
+                torch.abs(u_t[1] - torch.clamp(u_t[1] - Qu[1] * inv_wscl,
+                                               lb1, ub1)))
+            pg = torch.maximum(pg, pg_t)
+            Vs = [Vs_n[i] for i in range(_N)]
+            Vss = Vss_n
+
+        pred_decrease = -(dv1 + dv2)
+        tiny_model = (pred_decrease
+                      <= kn.tol_cost_eff * (wscl + torch.abs(cost))).to(dtype)
+
+        # ---- multi-alpha line search (candidates stacked (n_ls, B)) ----
+        s0_t = read_s(cur, 0)
+        S = [r.expand(n_alpha, B) for r in s0_t]
+        accs = zeros.expand(n_alpha, B)
+        cts = ct00.expand(n_alpha, B)
+        sts = st00.expand(n_alpha, B)
+        for t in range(T):
+            s_b = read_s(cur, t)
+            u_b = traj_u[cur][t]
+            k, K = ks[t], Ks[t]
+            rate = 1.0 if t >= 1 else 0.0
+            ds = [S[j] - s_b[j] for j in range(_N)]
+            u0_ = u_b[0] + alpha_col * k[0] + sum(
+                K[0, j] * ds[j] for j in range(_N) if j != 4)
+            u1_ = u_b[1] + alpha_col * k[1] + sum(
+                K[1, j] * ds[j] for j in range(_N) if j != 4)
+            u0_ = torch.clamp(u0_, lb0, ub0)
+            u1_ = torch.clamp(u1_, lb1, ub1)
+            accs = accs + stage_cost(S, u0_, u1_, rate)
+            se = se_of(cts, sts, S)
+            s_n = dyn_step(S, u0_, u1_, cts, sts, se)
+            cts, sts = step_trig(cts, sts, u0_ * dt, s_n)
+            S = s_n
+        costs = accs + term_cost(S)
+
+        picked = zeros
+        alpha_sel = zeros
+        cost_sel = cost
+        for a in range(n_alpha):
+            improved = (costs[a] < cost).to(dtype)
+            take = improved * (1.0 - torch.clamp(picked, max=1.0))
+            picked = picked + take
+            alpha_sel = alpha_sel + take * alphas[a]
+            cost_sel = torch.where(take > 0.5, costs[a], cost_sel)
+        accepted = torch.clamp(picked, max=1.0)
+        upd = accepted * act
+        keep = 1.0 - upd
+
+        # ---- winner re-roll into the other buffer (masked) ----
+        nxt = 1 - cur
+        traj_s[nxt][0] = s0_t[:6]
+        s_a = s0_t
+        ct, st = ct00, st00
+        for t in range(T):
+            s_b = read_s(cur, t)
+            u_b = traj_u[cur][t]
+            k, K = ks[t], Ks[t]
+            ds = [s_a[j] - s_b[j] for j in range(_N)]
+            u0_ = u_b[0] + alpha_sel * k[0] + sum(
+                K[0, j] * ds[j] for j in range(_N) if j != 4)
+            u1_ = u_b[1] + alpha_sel * k[1] + sum(
+                K[1, j] * ds[j] for j in range(_N) if j != 4)
+            u0_ = torch.clamp(u0_, lb0, ub0)
+            u1_ = torch.clamp(u1_, lb1, ub1)
+            se = se_of(ct, st, s_a)
+            g_n = (ct, st, se, ce_of(ct, st, s_a))
+            # the trig cache blends like the states it describes; in place
+            # is safe (nothing reads knot t again before the next backward)
+            traj_g[t] = tuple(upd * g + keep * g_old
+                              for g, g_old in zip(g_n, traj_g[t]))
+            s_n = dyn_step(s_a, u0_, u1_, ct, st, se)
+            traj_u[nxt][t] = (upd * u0_ + keep * u_b[0],
+                              upd * u1_ + keep * u_b[1])
+            traj_s[nxt][t + 1] = [upd * s_n[i] + keep * traj_s[cur][t + 1][i]
+                                  for i in range(6)]
+            ct, st = step_trig(ct, st, u0_ * dt, s_n)
+            s_a = s_n
+        cost2 = torch.where(upd > 0.5, cost_sel, cost)
+
+        # ---- per-lane bookkeeping ----
+        on = act > 0.5
+        mu2 = torch.where(
+            upd > 0.5, torch.maximum(mu / kn.mu_factor, mu_lo),
+            torch.where(on, torch.minimum(mu * kn.mu_factor, mu_hi), mu))
+        small_step = accepted * (
+            torch.abs(cost - cost2)
+            <= kn.tol_cost_eff * (wscl + torch.abs(cost))).to(dtype)
+        n_small2 = torch.where(
+            on, torch.where(small_step > 0.5, n_small + 1.0, zeros), n_small)
+        # a tiny predicted decrease certifies only with the trust region
+        # open; under inflated mu it is a stall only if the step was also
+        # rejected (mu_open reads the OLD mu)
+        mu_open = (mu <= mu_lo * kn.mu_factor).to(dtype)
+        converged_now = torch.maximum(
+            torch.maximum((pg < kn.tol_grad).to(dtype),
+                          (n_small2 >= 2.0).to(dtype)),
+            tiny_model * mu_open)
+        stalled = torch.maximum(
+            (1.0 - accepted) * (mu2 >= mu_hi).to(dtype),
+            tiny_model * (1.0 - mu_open) * (1.0 - accepted))
+        done2 = torch.where(on, torch.maximum(converged_now, stalled), done)
+        conv = torch.where(on, converged_now, conv)
+        gnorm = torch.where(on, pg, gnorm)
+        iters = iters + act
+        cost, mu, n_small, done = cost2, mu2, n_small2, done2
+        cur = nxt
+        it += 1
+
+    ss = torch.stack([torch.stack(read_s(cur, t)) for t in range(T + 1)])
+    us = torch.stack([torch.stack(traj_u[cur][t]) for t in range(T)])
+    return ss, us, cost, conv, iters, gnorm, mu, done
+
+
+# ---------------------------------------------------------------- CUDA
+
+
+def solve_mega_cuda(zT, cT, pp, lb, ub, u0, cfg):
+    """Launch the hand-written kernel (`csrc/solve_mega.cu`) on CUDA
+    float32 tensors; raises on anything else. Allocates every output and
+    scratch buffer; launches on the current stream and does not
+    synchronize."""
+    global launches
+    args = (zT, cT, pp, lb, ub, u0)
+    for a in args:
+        if not a.is_cuda:
+            raise ValueError("solve_mega_cuda needs CUDA tensors, got one "
+                             f"on {a.device}")
+        if a.dtype != torch.float32:
+            raise ValueError("solve_mega_cuda computes in float32, got "
+                             f"{a.dtype}")
+        if a.device != zT.device:
+            raise ValueError("solve_mega_cuda inputs must share a device")
+    kn = resolve_knobs(cfg, torch.float32)
+    T = kn.T
+    B = _check_inputs(zT, cT, pp, lb, ub, u0, T)
+    P = cT.shape[0]
+    if P > 8:
+        raise ValueError(f"the kernel takes polynomials up to order 7 "
+                         f"(P <= 8), got P={P}")
+    if T < 1 or not 1 <= kn.n_ls <= 8:
+        raise ValueError(f"the kernel takes T >= 1 and 1 <= n_ls <= 8, "
+                         f"got T={T}, n_ls={kn.n_ls}")
+    args = [a.contiguous() for a in args]
+    from . import _build
+
+    lib = _build.load(kn.variant)
+    dev = zT.device
+    f32 = torch.float32
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=f32, device=dev)
+
+    ss, us = empty(T + 1, _N, B), empty(T, _M, B)
+    outs = [empty(B) for _ in range(6)]
+    scratch = [empty(2, T + 1, 6, B), empty(2, T, _M, B), empty(T, 4, B),
+               empty(T, _M, B), empty(T, _M, _N, B)]
+    ptr = [ctypes.c_void_p(a.data_ptr()) for a in args + [ss, us] + outs
+           + scratch]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mpc_solve_mega_f32(
+            *ptr, ctypes.c_int(P), ctypes.c_int(B), ctypes.c_int(T),
+            ctypes.c_int(kn.max_iters), ctypes.c_float(kn.sign),
+            ctypes.c_float(kn.tol_grad), ctypes.c_float(kn.tol_cost_eff),
+            ctypes.c_float(kn.mu_min), ctypes.c_float(kn.mu_max),
+            ctypes.c_float(kn.mu_factor), ctypes.c_float(kn.ddp_gate),
+            ctypes.c_int(kn.n_ls), ctypes.c_int(int(kn.ddp)),
+            ctypes.c_int(int(kn.fast_trig)), ctypes.c_int(int(kn.adaptive)),
+            ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"solve_mega kernel launch failed: "
+                           f"{_build.error_string(lib, err)}")
+    launches += 1
+    return (ss, us, *outs)
+
+
+def solve_mega(zT, cT, pp, lb, ub, u0, cfg):
+    """The megakernel solve: CPU tensors run `solve_mega_plain`, CUDA
+    tensors the kernel (float32 only; anything else raises)."""
+    if zT.is_cuda:
+        return solve_mega_cuda(zT, cT, pp, lb, ub, u0, cfg)
+    return solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg)
+
+
+def solve_mega_scheduled(zT, cT, pp, lb, ub, u0, cfg):
+    """The megakernel under the SolverConfig iteration schedule
+    (counterpart of `solve_pallas_scheduled`). This slice runs the single
+    pass, which is what "auto" resolves to at N <= 36; the compact and
+    sorted schedules raise."""
+    schedule = cfg.schedule
+    if schedule == "auto" and cfg.n_steps > 36:
+        schedule = "compact"
+    two_pass = (cfg.schedule == "sorted"
+                and 1 <= cfg.presolve_iters < cfg.max_sqp_iters)
+    if schedule == "compact" or two_pass:
+        raise NotImplementedError(
+            f"schedule {cfg.schedule!r} at n_steps={cfg.n_steps} resolves "
+            f"to the {'compact' if schedule == 'compact' else 'sorted'} "
+            f"schedule, which is not ported yet (ROADMAP Queue 2, K1 stage "
+            f"(d) and K3)")
+    return solve_mega(zT, cT, pp, lb, ub, u0, cfg)

@@ -1,0 +1,4 @@
+from . import base, diff_drive
+from .base import Model, get_model, register_model
+
+__all__ = ["base", "diff_drive", "Model", "get_model", "register_model"]

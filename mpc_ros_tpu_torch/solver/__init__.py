@@ -1,0 +1,4 @@
+from .batch_lane import batch_solve_lane
+from .types import SolveResult
+
+__all__ = ["SolveResult", "batch_solve_lane"]
