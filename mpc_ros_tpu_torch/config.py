@@ -115,8 +115,10 @@ class SolverConfig:
     mu_max: float = 1e8
     # stop once this fraction of lanes is done (1.0 = every lane)
     done_frac: float = 1.0
-    # "auto" | "mega" (the hand-written kernel on CUDA, its plain version
-    # on the CPU); "xla" and "pallas" name JAX-package paths not ported
+    # "auto" (the whole-solve kernel on CUDA tensors, the XLA lane path on
+    # CPU tensors) | "mega" (the whole-solve kernel) | "pallas" (the
+    # two-kernel route) | "xla" (the XLA lane path); the kernels take f32
+    # with B % 128 == 0, anything else runs the XLA lane path
     backward: str = "auto"
     horizon_parallel: bool = False
     # gated GN->DDP second-order backward terms; "auto" = on in f32

@@ -5,8 +5,8 @@ robot's NMPC problem warm-started from its previous solution (shifted by
 one step), applies the first control, and advances each plant one period
 with the same error-state kinematics the solver optimizes. The JAX
 `lax.scan` over cycles is a Python loop here; on CUDA tensors every
-cycle's solve is one launch of the solve kernel, and nothing leaves the
-device inside the loop.
+cycle's solve runs on the card through `batch_solve_lane`'s dispatch (one
+launch of the whole-solve kernel under "auto").
 """
 
 from __future__ import annotations

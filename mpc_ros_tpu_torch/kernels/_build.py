@@ -2,11 +2,13 @@
 
 Each kernel source under `csrc/` is compiled with `nvcc` for sm_90a into
 a shared library with a plain C interface, loaded with `ctypes`. Builds go
-to `build/kernels/` at the repository root, named by a hash of the sources
-and flags, so an unchanged source is compiled once. The solve kernel is a
-template on (n_ls, ddp, fast trig, adaptive weight scale); each build
-instantiates one such variant, and `build_many` compiles several at once,
-one `nvcc` process each.
+to `build/kernels/` at the repository root, named by the kernel, its
+variant and a hash of its own `.cu` file, the shared `tiles.cuh` and the
+flags, so an unchanged source is compiled once. A kernel may be a
+template: each build instantiates one variant of it (`Kernel.flags` turns
+the variant tuple into `-D` macros), and `build_many` compiles several
+(kernel, variant) pairs at once, one `nvcc` process each, all started
+together.
 
 Nothing is compiled at import time: the first `load` of a variant builds
 it.
@@ -15,18 +17,62 @@ it.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Callable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("solve_mega.cu", "tiles.cuh")
+COMMON = ("tiles.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+@dataclasses.dataclass(frozen=True)
+class Kernel:
+    """One kernel source: its file, its C launcher's name and ctypes
+    signature (every launcher returns the int `cudaGetLastError()`), and
+    the nvcc macros of a variant."""
+
+    source: str
+    entry: str
+    argtypes: tuple
+    flags: Callable[[tuple], list]
+
+
+def _mega_flags(variant) -> list:
+    n_ls, ddp, fast, adaptive = variant
+    return [f"-DMEGA_NLS={int(n_ls)}", f"-DMEGA_DDP={int(bool(ddp))}",
+            f"-DMEGA_FAST={int(bool(fast))}",
+            f"-DMEGA_ADAPT={int(bool(adaptive))}"]
+
+
+KERNELS = {
+    # variant (n_ls, ddp, fast trig, adaptive weight scale)
+    "solve_mega": Kernel(
+        "solve_mega.cu", "mpc_solve_mega_f32",
+        (_P,) * 19 + (_I,) * 4 + (_F,) * 7 + (_I,) * 4 + (_P,),
+        _mega_flags),
+    # variant () — one instantiation
+    "backward_fused": Kernel(
+        "backward_fused.cu", "mpc_backward_fused_f32",
+        (_P,) * 14 + (_I,) * 3 + (_F,) + (_P,),
+        lambda variant: []),
+    # variant (n_alpha,)
+    "forward": Kernel(
+        "forward.cu", "mpc_forward_f32",
+        (_P,) * 14 + (_I,) * 3 + (_F,) + (_I,) + (_P,),
+        lambda variant: [f"-DFWD_NALPHA={int(variant[0])}"]),
+}
 
 _LIBS: dict = {}
 
@@ -48,31 +94,27 @@ def nvcc_path() -> str:
     return found
 
 
-def _variant_flags(variant) -> list:
-    n_ls, ddp, fast, adaptive = variant
-    return [f"-DMEGA_NLS={int(n_ls)}", f"-DMEGA_DDP={int(bool(ddp))}",
-            f"-DMEGA_FAST={int(bool(fast))}",
-            f"-DMEGA_ADAPT={int(bool(adaptive))}"]
+def _flags(kernel: str, variant) -> list:
+    return list(NVCC_FLAGS) + KERNELS[kernel].flags(tuple(variant))
 
 
-def lib_path(variant) -> Path:
+def lib_path(kernel: str, variant) -> Path:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in (KERNELS[kernel].source,) + COMMON:
         h.update((CSRC / name).read_bytes())
-    flags = list(NVCC_FLAGS) + _variant_flags(variant)
-    h.update(" ".join(flags).encode())
-    tag = "_".join(str(int(v)) for v in variant)
-    return BUILD_DIR / f"solve_mega_{tag}_{h.hexdigest()[:16]}.so"
+    h.update(" ".join(_flags(kernel, variant)).encode())
+    tag = "_".join(str(int(v)) for v in variant) or "0"
+    return BUILD_DIR / f"{kernel}_{tag}_{h.hexdigest()[:16]}.so"
 
 
-def _start(variant):
-    out = lib_path(variant)
+def _start(kernel: str, variant):
+    out = lib_path(kernel, variant)
     if out.exists():
         return out, None
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, *_variant_flags(variant),
-           str(CSRC / "solve_mega.cu"), "-o", str(tmp)]
+    cmd = [nvcc_path(), *_flags(kernel, variant),
+           str(CSRC / KERNELS[kernel].source), "-o", str(tmp)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return out, (proc, tmp, cmd)
@@ -90,18 +132,18 @@ def _finish(out, job) -> str:
     return log
 
 
-def build_many(variants) -> dict:
-    """Compile the given variants concurrently (one nvcc each). Returns
-    {variant: (seconds, ptxas summary lines)}; a variant already built
-    reports 0 seconds and its saved log."""
+def build_many(pairs) -> dict:
+    """Compile the given (kernel, variant) pairs concurrently (one nvcc
+    each). Returns {(kernel, variant): (seconds, ptxas summary lines)}; a
+    pair already built reports 0 seconds and its saved log."""
     t0 = time.perf_counter()
-    jobs = {v: _start(v) for v in variants}
+    jobs = {(k, tuple(v)): _start(k, v) for k, v in pairs}
     res = {}
-    for v, (out, job) in jobs.items():
+    for key, (out, job) in jobs.items():
         log = (out.with_suffix(".log").read_text() if job is None
                else _finish(out, job))
-        res[v] = (0.0 if job is None else time.perf_counter() - t0,
-                  ptxas_summary(log))
+        res[key] = (0.0 if job is None else time.perf_counter() - t0,
+                    ptxas_summary(log))
     return res
 
 
@@ -111,26 +153,29 @@ def ptxas_summary(log: str) -> list:
             if "registers" in ln or "spill" in ln]
 
 
-def load(variant):
-    """The ctypes library of one kernel variant, built at first use."""
-    variant = tuple(variant)
-    lib = _LIBS.get(variant)
-    if lib is not None:
-        return lib
-    out, job = _start(variant)
+def load(kernel: str, variant=()):
+    """The ctypes launcher of one kernel variant, built at first use."""
+    key = (kernel, tuple(variant))
+    fn = _LIBS.get(key)
+    if fn is not None:
+        return fn
+    out, job = _start(*key)
     if job is not None:
         _finish(out, job)
     lib = ctypes.CDLL(str(out))
-    fn = lib.mpc_solve_mega_f32
-    fn.argtypes = ([ctypes.c_void_p] * 19 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] * 7 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
+    spec = KERNELS[kernel]
+    fn = getattr(lib, spec.entry)
+    fn.argtypes = list(spec.argtypes)
     fn.restype = ctypes.c_int
     lib.mpc_cuda_error_string.argtypes = [ctypes.c_int]
     lib.mpc_cuda_error_string.restype = ctypes.c_char_p
-    _LIBS[variant] = lib
-    return lib
+    fn.lib = lib
+    _LIBS[key] = fn
+    return fn
 
 
-def error_string(lib, err: int) -> str:
-    return f"{err}: {lib.mpc_cuda_error_string(err).decode()}"
+def check(fn, err: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error (or a variant mismatch)."""
+    if err != 0:
+        msg = fn.lib.mpc_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {err}: {msg}")

@@ -572,7 +572,7 @@ def solve_mega_cuda(zT, cT, pp, lb, ub, u0, cfg):
     args = [a.contiguous() for a in args]
     from . import _build
 
-    lib = _build.load(kn.variant)
+    launch = _build.load("solve_mega", kn.variant)
     dev = zT.device
     f32 = torch.float32
 
@@ -587,7 +587,7 @@ def solve_mega_cuda(zT, cT, pp, lb, ub, u0, cfg):
            + scratch]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mpc_solve_mega_f32(
+        err = launch(
             *ptr, ctypes.c_int(P), ctypes.c_int(B), ctypes.c_int(T),
             ctypes.c_int(kn.max_iters), ctypes.c_float(kn.sign),
             ctypes.c_float(kn.tol_grad), ctypes.c_float(kn.tol_cost_eff),
@@ -596,9 +596,7 @@ def solve_mega_cuda(zT, cT, pp, lb, ub, u0, cfg):
             ctypes.c_int(kn.n_ls), ctypes.c_int(int(kn.ddp)),
             ctypes.c_int(int(kn.fast_trig)), ctypes.c_int(int(kn.adaptive)),
             ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"solve_mega kernel launch failed: "
-                           f"{_build.error_string(lib, err)}")
+    _build.check(launch, err, "solve_mega")
     launches += 1
     return (ss, us, *outs)
 

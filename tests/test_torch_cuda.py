@@ -1,6 +1,7 @@
 """Tests that need an NVIDIA GPU (marker `cuda`; they skip without one):
-the solve kernel against its plain version on the card, and the main path
-launching it. Run on the card with
+the three kernels against their plain versions on the card, the main path
+and the two-kernel route launching them, and the XLA lane path taking what
+the kernels do not. Run on the card with
 `python -m pytest --noconftest tests/test_torch_cuda.py` (tests/conftest.py
 configures JAX, which the card's machine need not have).
 """
@@ -13,8 +14,11 @@ import torch
 from mpc_ros_tpu_torch.config import MPCParams, SolverConfig
 from mpc_ros_tpu_torch.engine import (make_random_scenarios,
                                       receding_horizon_rollout)
-from mpc_ros_tpu_torch.kernels import solve_mega
-from mpc_ros_tpu_torch.solver.batch_lane import batch_solve_lane, lane_inputs
+from mpc_ros_tpu_torch.kernels import backward_fused, forward, solve_mega
+from mpc_ros_tpu_torch.solver.batch_lane import (LaneSQP, batch_solve_lane,
+                                                 lane_inputs,
+                                                 solve_two_kernel,
+                                                 two_kernel_stages)
 from mpc_ros_tpu_torch.verify import parity_gates
 
 pytestmark = pytest.mark.cuda
@@ -65,12 +69,110 @@ def test_main_path_and_serving_launch_the_kernel(dev):
     assert float(tr.converged.float().mean()) >= 0.99
 
 
+def _launch_counts():
+    return (solve_mega.launches, backward_fused.launches, forward.launches)
+
+
 def test_cuda_refuses_what_the_kernel_does_not_take(dev):
+    """Off the kernels' rule (f64, B % 128 != 0) a CUDA solve runs the XLA
+    lane path on the card, launching no kernel; the wrappers refuse f64."""
     z0s, coeffs = _scen(dev, 256)
-    with pytest.raises(NotImplementedError):
-        batch_solve_lane(z0s.double(), coeffs.double(), MPCParams(), PROD)
-    with pytest.raises(NotImplementedError):
-        batch_solve_lane(z0s[:200], coeffs[:200], MPCParams(), PROD)
+    before = _launch_counts()
+    for z, c in ((z0s.double(), coeffs.double()), (z0s[:200], coeffs[:200])):
+        res = batch_solve_lane(z, c, MPCParams(), PROD)
+        assert res.us.is_cuda and res.us.dtype == z.dtype
+        assert bool(torch.isfinite(res.us).all())
+        assert float(res.converged.float().mean()) >= 0.99
+    assert _launch_counts() == before
     ins = lane_inputs(z0s, coeffs, MPCParams(), PROD)
     with pytest.raises(ValueError):
         solve_mega.solve_mega_cuda(*(a.double() for a in ins), PROD)
+    sqp = LaneSQP(z0s, coeffs, MPCParams(), ROUTE,
+                  two_kernel=two_kernel_stages(plain=True))
+    bi = [a.double() if torch.is_tensor(a) else a
+          for a in sqp.backward_inputs()]
+    with pytest.raises(ValueError):
+        backward_fused.backward_fused_cuda(*bi)
+    fi = [a.double() if torch.is_tensor(a) else a
+          for a in sqp.forward_inputs(*backward_fused.backward_fused_plain(
+              *sqp.backward_inputs())[:2])]
+    with pytest.raises(ValueError):
+        forward.forward_cuda(*fi, n_alpha=8)
+    assert _launch_counts() == before
+
+
+# the two-kernel route: GN, 8 candidates, the adaptive scale off
+ROUTE = SolverConfig(n_steps=30, max_sqp_iters=12, tol_grad=1e-4,
+                     backward="pallas")
+
+
+def _iteration_inputs(dev, B, iters):
+    """The backward and forward inputs of SQP iteration `iters` + 1 of the
+    route (plain stages) on B scenarios, and the plain outputs on them."""
+    z0s, coeffs = _scen(dev, B, seed=3)
+    sqp = LaneSQP(z0s, coeffs, MPCParams().astype(torch.float32, dev), ROUTE,
+                  two_kernel=two_kernel_stages(plain=True))
+    for _ in range(iters):
+        sqp.step()
+    bi = sqp.backward_inputs()
+    bp = backward_fused.backward_fused_plain(*bi)
+    return bi, bp, sqp.forward_inputs(bp[0], bp[1])
+
+
+@pytest.mark.parametrize("iters", [0, 3])
+def test_backward_fused_kernel_matches_plain(dev, iters):
+    bi, bp, _ = _iteration_inputs(dev, 1024, iters)
+    bk = backward_fused.backward_fused_cuda(*bi)
+    torch.cuda.synchronize()
+    # f32 with FMA contraction against separate multiply-adds: rounding-
+    # level differences, amplified through the 29-stage recursion
+    for k, p in zip(bk, bp):
+        torch.testing.assert_close(k, p, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("iters", [0, 3])
+@pytest.mark.parametrize("n_alpha", [8, 3])
+def test_forward_kernel_matches_plain(dev, iters, n_alpha):
+    _, _, fi = _iteration_inputs(dev, 1024, iters)
+    fk = forward.forward_cuda(*fi, n_alpha=n_alpha)
+    fp = forward.forward_plain(*fi, n_alpha=n_alpha)
+    torch.cuda.synchronize()
+    agree = fk[3] == fp[3]
+    if iters == 0:
+        # every lane active and far from its optimum: the flags agree
+        assert float(agree.float().mean()) >= 0.999
+    else:
+        # converged lanes compare candidate costs equal to the current one
+        # at rounding level, and FMA contraction decides them; a flag on a
+        # done lane (act = 0) reaches nothing. Over active lanes, a flip
+        # must be such a tie: the accepting side gains < 1e-5 (1 + |J|)
+        cost, on = fi[9], fi[10] > 0.5
+        gain = torch.maximum(cost - fk[2], cost - fp[2])
+        tie = ~agree & (gain <= 1e-5 * (1.0 + cost.abs()))
+        assert float((agree | tie)[on].float().mean()) >= 0.999
+    # over the lanes whose acceptance agrees, the trajectories and costs
+    # agree to f32 rounding carried through 29 steps; a lane may still
+    # take another (tied) alpha, so the bar is per lane on >= 0.999 of
+    # them, as in chip_smoke.py
+    lane_ok = torch.ones_like(agree)
+    for k, p in zip(fk[:3], fp[:3]):
+        bad = (k - p).abs() > 1e-3 * (1.0 + p.abs())
+        lane_ok &= ~bad.reshape(-1, bad.shape[-1]).any(dim=0)
+    assert float(lane_ok[agree].float().mean()) >= 0.999
+
+
+def test_route_launches_each_kernel_once_per_iteration(dev):
+    z0s, coeffs = _scen(dev, 2048, seed=4)
+    p = MPCParams().astype(torch.float32, dev)
+    before = _launch_counts()
+    res = batch_solve_lane(z0s, coeffs, p, ROUTE)
+    torch.cuda.synchronize()
+    its = int(res.n_iters.max())
+    assert _launch_counts() == (before[0], before[1] + its, before[2] + its)
+    assert float(res.converged.float().mean()) >= 0.99
+    plain = solve_two_kernel(z0s, coeffs, p, ROUTE, plain=True)
+    g = parity_gates(res.us.cpu(), res.cost.cpu(), res.converged.cpu(),
+                     res.n_iters.cpu(), plain.us.cpu(), plain.cost.cpu(),
+                     plain.converged.cpu(), plain.n_iters.cpu(), 30)
+    assert g["ok"], g
+    assert _launch_counts()[1:] == (before[1] + its, before[2] + its)

@@ -1,6 +1,9 @@
 """The port's warm-started serving loop against the JAX package's
 receding_horizon_rollout on the same numpy robots (B=128, N=12, 3 cycles),
-held cycle by cycle to the solver parity gates."""
+held cycle by cycle to the solver parity gates. The port's side runs the
+whole-solve kernel's plain version (`backward="mega"`; "auto" on CPU
+tensors is the XLA lane path, as in the JAX package, whose serving is
+held in tests/test_torch_lane_xla.py)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -31,7 +34,8 @@ def traces():
     t = lambda a: torch.tensor(a, dtype=torch.float32)
     tr_t = receding_horizon_rollout(t(z0), t(coeffs),
                                     MPCParams().astype(torch.float32),
-                                    SolverConfig(**KW), n_cycles=CYCLES)
+                                    SolverConfig(**KW, backward="mega"),
+                                    n_cycles=CYCLES)
     return tr_j, tr_t
 
 
