@@ -31,11 +31,48 @@ them and never falls back to the CPU. Phases, one output line each:
     B=524,288 — solves/s, K4/K5 time per launch, launches per solve
     (= iterations run), converged fraction, the plain route's time, and
     the route against the whole-solve kernel in its matching variant;
- 8. serving through the route: 131,072 robots x 3 cycles.
+ 8. serving through the route: 131,072 robots x 3 cycles;
+ 9. the solve kernel's resume state and per-block exit against its plain
+    version at the long horizon (N=48, cap 22, the long-horizon pair), at
+    B=8192 and B=131,072: done_frac = 0.97 cold, and done_frac = 1 resumed
+    from a pass-1 result with some done lanes re-armed. Both are held lane
+    by lane at the single-pass gates, the numerics over the lanes
+    converged on both sides (a lane still running when its tile or its cap
+    stopped it, or stalled, holds an iterate away from a stationary point;
+    the fraction gates count it); as many tiles exit early on both sides,
+    and each side's tiles stop where the per-tile exit puts them;
+10. the long-horizon main path: `batch_solve_lane` at N=48, B=131,072 —
+    the compact schedule observed engaged (two passes, the tail's lanes),
+    the lanes beyond the tail, converged fraction, iterations, ms per
+    solve and solves/s, each pass's kernel time and bound, the single pass
+    and the lockstep per-block loop timed at the same shape, and the
+    result against the plain compact schedule. The schedules (this phase
+    and the next four) are held against the same schedule run on the
+    plain version (`solve_mega_scheduled(plain=True)`), the compact ones at
+    `kernel_verify`'s compact rule (`parity_gates(compact=True)`: numerics
+    over iteration-matched lanes, since a lane whose tile stopped one
+    iteration apart on the two sides walks a different path), the sorted
+    one at the single-pass rule;
+11. N=100 at cap 45, B=16,384, through the same path, against the plain
+    compact schedule;
+12. the sorted schedule at N=30, B=131,072, against the single pass and
+    against the plain sorted schedule;
+13. the tuning sweep, 8 candidates x 16,384 scenarios, with and without
+    the difficulty presort;
+14. long-horizon serving: 131,072 robots x 3 cycles at N=48, and cycle 1's
+    warm-started compact solve against the plain compact schedule.
 
 Then a JSON line describing each kernel (launches on the main path, error
 against the plain version, times, the bound on this card) and, last, the
 device JSON line. Every phase raises on failure; nothing is caught.
+
+    python3 chip_smoke.py --survey 16,26,36,46
+
+runs phase 9 alone at B=131,072 on the seeds given and records each
+comparison without stopping at a broken gate; for a broken one it traces
+the lanes the gate points at (where the two sides part, and how far each
+lies from a float64 solve). It exits 1 if any gate broke, and prints no
+device line.
 """
 
 from __future__ import annotations
@@ -43,13 +80,15 @@ from __future__ import annotations
 import dataclasses
 import json
 import subprocess
+import sys
 import time
 
 import torch
 
 from mpc_ros_tpu_torch.config import MPCParams, SolverConfig
 from mpc_ros_tpu_torch.engine import (make_random_scenarios,
-                                      receding_horizon_rollout)
+                                      receding_horizon_rollout,
+                                      sample_weight_candidates, tuning_sweep)
 from mpc_ros_tpu_torch.kernels import _build, backward_fused, forward
 from mpc_ros_tpu_torch.kernels import solve_mega
 from mpc_ros_tpu_torch.solver.batch_lane import (LaneSQP, batch_solve_lane,
@@ -78,6 +117,17 @@ ROUTE_MEGA = SolverConfig(n_steps=N_STEPS, max_sqp_iters=12, tol_grad=1e-4,
                           ddp=False, ls_iters=8, trig="exact",
                           scale_adaptive=False, backward="mega")
 N_ALPHA = ROUTE.ls_for(torch.float32)
+# the long horizon: N=48 at the cap round(0.45 N) = 22, auto knobs (the
+# long-horizon pair: gate 1.5, mu floor 1e-2), "auto" -> compact at N > 36
+LONG = SolverConfig(n_steps=48, max_sqp_iters=22, tol_grad=1e-4)
+B_LONG = 131072
+# the reference planner's longest horizon, N=100 at cap 45
+LONGEST = SolverConfig(n_steps=100, max_sqp_iters=45, tol_grad=1e-4)
+B_LONGEST = 16384
+# the tuning sweep's shape: 8 candidates x 16,384 scenarios
+N_CANDIDATES = 8
+B_SWEEP = 16384
+LONG_CYCLES = 3
 
 # The card's peaks for the bounds (NVIDIA's H100 SXM data sheet): HBM3 at
 # 3.35 TB/s, f32 outside the tensor cores at 67 TFLOP/s.
@@ -134,27 +184,69 @@ def scenarios(seed: int, B: int, dev):
     return make_random_scenarios(gen, B, torch.float32)
 
 
-def held_against_plain(ins, cfg, what: str):
+def outputs_gates(out_k, out_p, n_steps: int, compact: bool = False,
+                  lanes=None) -> dict:
+    """The parity gates between two (ss, us, cost, conv, iters, ...)
+    kernel-layout outputs. With `compact`, `kernel_verify`'s compact rule
+    (numerics over iteration-matched lanes), and the single-pass rule's
+    reading beside it for the record. `lanes`: the lanes the numerics
+    cover (the fraction gates count every lane)."""
+    args = [out_k[1].permute(2, 0, 1).cpu().numpy(), out_k[2].cpu().numpy(),
+            out_k[3].cpu().numpy(), out_k[4].cpu().numpy(),
+            out_p[1].permute(2, 0, 1).cpu().numpy(), out_p[2].cpu().numpy(),
+            out_p[3].cpu().numpy(), out_p[4].cpu().numpy(), n_steps]
+    if lanes is not None:
+        lanes = lanes.cpu().numpy()
+    g = parity_gates(*args, compact=compact, lanes=lanes)
+    if compact:
+        single = parity_gates(*args, lanes=lanes)
+        g["single_pass_rule"] = {k: single[k] for k in (
+            "max_du", "max_rel_dcost", "compared_frac", "ok")}
+    return g
+
+
+def worst_lane(out_k, out_p, by: str = "du", lanes=None) -> dict:
+    """The lane (among `lanes`, default all) with the largest |du|, or with
+    `by="cost"` the largest |d-cost| / (1 + |cost|), between two
+    kernel-layout outputs, and its state on both sides."""
+    du = (out_k[1] - out_p[1]).abs().amax(dim=(0, 1))
+    dc = (out_k[2] - out_p[2]).abs() / (1.0 + out_p[2].abs())
+    key = du if by == "du" else dc
+    if lanes is not None:
+        key = torch.where(lanes, key, torch.zeros_like(key))
+    i = int(key.argmax())
+
+    def side(o):
+        return {"done": float(o[7][i]), "conv": float(o[3][i]),
+                "iters": float(o[4][i]), "cost": float(o[2][i]),
+                "gnorm": float(o[5][i]), "mu": float(o[6][i])}
+
+    return {"lane": i, "du": float(du[i]), "rel_dcost": float(dc[i]),
+            "kernel": side(out_k), "plain": side(out_p)}
+
+
+def both_sides(ins, cfg, resume=None):
     """The kernel and its plain version on the same inputs on the card,
-    held to the parity gates; raises on a broken gate. Returns (gates,
-    kernel seconds, plain seconds), each side timed alone to a sync."""
-    t0 = time.perf_counter()
-    out_k = solve_mega.solve_mega_cuda(*ins, cfg)
-    torch.cuda.synchronize()
-    t_k = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    out_p = solve_mega.solve_mega_plain(*ins, cfg)
-    torch.cuda.synchronize()
-    t_p = time.perf_counter() - t0
-    g = parity_gates(
-        out_k[1].permute(2, 0, 1).cpu().numpy(), out_k[2].cpu().numpy(),
-        out_k[3].cpu().numpy(), out_k[4].cpu().numpy(),
-        out_p[1].permute(2, 0, 1).cpu().numpy(), out_p[2].cpu().numpy(),
-        out_p[3].cpu().numpy(), out_p[4].cpu().numpy(), cfg.n_steps)
+    each timed alone to a sync: (kernel outputs, seconds, plain outputs,
+    seconds)."""
+    out_k, t_k = host_s(lambda: solve_mega.solve_mega_cuda(
+        *ins, cfg, resume=resume))
+    out_p, t_p = host_s(lambda: solve_mega.solve_mega_plain(
+        *ins, cfg, resume=resume))
+    return out_k, t_k, out_p, t_p
+
+
+def held_against_plain(ins, cfg, what: str, resume=None):
+    """The kernel and its plain version (`both_sides`) held to the
+    single-pass parity gates. Raises on a broken gate. Returns (gates,
+    kernel seconds, plain seconds, kernel outputs, plain outputs)."""
+    out_k, t_k, out_p, t_p = both_sides(ins, cfg, resume)
+    g = outputs_gates(out_k, out_p, cfg.n_steps)
     if not g["ok"]:
-        raise SystemExit(f"kernel disagrees with its plain version ({what}): "
-                         f"{g}")
-    return g, t_k, t_p
+        raise SystemExit(
+            f"kernel disagrees with its plain version ({what}): {g}; worst "
+            f"lane {worst_lane(out_k, out_p)}")
+    return g, t_k, t_p, out_k, out_p
 
 
 def kernel_vs_plain(dev) -> float:
@@ -163,8 +255,8 @@ def kernel_vs_plain(dev) -> float:
     z0s, coeffs = scenarios(0, B_VERIFY, dev)
     for name, cfg, lane_w in variants():
         p = params(B_VERIFY, dev, lane_w)
-        g, t_k, t_p = held_against_plain(lane_inputs(z0s, coeffs, p, cfg),
-                                         cfg, f"variant {name}")
+        g, t_k, t_p, _, _ = held_against_plain(
+            lane_inputs(z0s, coeffs, p, cfg), cfg, f"variant {name}")
         emit("kernel_vs_plain", variant=name, kernel_s=t_k, plain_s=t_p,
              **g)
         worst = max(worst, g["max_du"])
@@ -172,14 +264,16 @@ def kernel_vs_plain(dev) -> float:
 
 
 def reset_launches() -> None:
-    """Every kernel's launch count to 0, just before a path is driven."""
+    """Every kernel's launch count, and the schedules' pass and tail
+    counts, to 0, just before a path is driven."""
     solve_mega.launches = backward_fused.launches = forward.launches = 0
+    solve_mega.passes = solve_mega.tail_lanes = 0
 
 
-def check_result(res, B: int) -> None:
-    T = N_STEPS - 1
+def check_result(res, B: int, n_steps: int = N_STEPS) -> None:
+    T = n_steps - 1
     if tuple(res.us.shape) != (B, T, 2) or tuple(res.zs.shape) != (
-            B, N_STEPS, 6):
+            B, n_steps, 6):
         raise SystemExit(f"unexpected shapes {res.us.shape} {res.zs.shape}")
     for name in ("us", "zs", "cost"):
         if not bool(torch.isfinite(getattr(res, name)).all()):
@@ -214,15 +308,16 @@ def main_path(dev) -> dict:
     bound = mega_bound(ins, solve_mega.solve_mega_cuda(*ins, PROD), PROD,
                        res.n_iters)
     # the kernel against its plain version at the main path's shape
-    vs_plain, _, plain_s = held_against_plain(ins, PROD, "main path")
+    vs_plain, _, plain_s, _, _ = held_against_plain(ins, PROD, "main path")
     plain_ms = plain_s * 1e3
     out = dict(batch=B_MAIN, solves_per_s=B_MAIN / wall,
                kernel_ms=kernel_ms, plain_ms=plain_ms,
                plain_solves_per_s=B_MAIN / (plain_ms / 1e3),
                bound_ms=bound[0], bound_by=bound[1],
                converged_frac=conv, mean_iters=iters,
-               max_iters=int(res.n_iters.max()), launches=launches,
-               vs_plain=vs_plain)
+               max_iters=int(res.n_iters.max()),
+               mean_warp_max_iters=warp_max_iters(res.n_iters),
+               launches=launches, vs_plain=vs_plain)
     emit("main_path", **out)
     return out
 
@@ -251,9 +346,9 @@ def serving(dev) -> dict:
     # the plant state after cycle 0 and cycle 0's solution shifted by one
     us0 = batch_solve_lane(z0s, coeffs, p, PROD).us
     warm = torch.cat([us0[:, 1:], us0[:, -1:]], dim=1)
-    vs_plain, _, _ = held_against_plain(
+    vs_plain = held_against_plain(
         lane_inputs(tr.zs[1], coeffs, p, PROD, u_init=warm), PROD,
-        "serving, warm start")
+        "serving, warm start")[0]
     out = dict(robots=B_SERVE, cycles=N_CYCLES,
                control_cycles_per_s=B_SERVE * N_CYCLES / wall,
                ms_per_cycle=wall / N_CYCLES * 1e3,
@@ -277,14 +372,59 @@ def bound_ms(tensors, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def mega_bound(ins, outs, cfg, iters) -> tuple:
-    """The whole-solve kernel's bound on one call: its inputs and outputs,
-    and the operations of the SQP iterations these lanes ran."""
+def mega_bound(ins, outs, cfg, iters, resume=None) -> tuple:
+    """The whole-solve kernel's bound on one call: its inputs (the resume
+    state's 16 bytes per lane included) and outputs, and the operations of
+    the SQP iterations these lanes ran."""
     T = cfg.n_controls
     bwd, cand, reroll = FLOP_MEGA_STAGE
     per_iter = T * (bwd + cfg.ls_for(torch.float32) * cand + reroll)
-    return bound_ms(list(ins) + list(outs),
+    return bound_ms(list(ins) + list(resume or ()) + list(outs),
                     per_iter * float(iters.double().sum()))
+
+
+class KernelTimes:
+    """Within the block, every launch of the whole-solve kernel is timed
+    on the device (CUDA events recorded on its stream just before and after
+    the wrapper call) and its bound computed from its own inputs, outputs
+    and iterations. The launch count stays the wrapper's."""
+
+    def __enter__(self):
+        self.calls = []
+        self.wrapped = solve_mega.solve_mega_cuda
+
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            outs = self.wrapped(*args, **kw)
+            stop.record()
+            self.calls.append((start, stop, args, outs))
+            return outs
+
+        solve_mega.solve_mega_cuda = timed
+        return self
+
+    def __exit__(self, *exc):
+        solve_mega.solve_mega_cuda = self.wrapped
+
+    def launches(self) -> list:
+        """[(ms, bound (ms, which), lanes, mean per-warp maximum of
+        iterations)] per launch, in order."""
+        torch.cuda.synchronize()
+        out = []
+        for start, stop, args, outs in self.calls:
+            resume = args[7] if len(args) > 7 else None
+            out.append((start.elapsed_time(stop),
+                        mega_bound(args[:6], outs, args[6], outs[4], resume),
+                        int(args[0].shape[-1]), warp_max_iters(outs[4])))
+        return out
+
+
+def warp_max_iters(iters) -> float:
+    """The mean over 32-lane warps of the warp's largest iteration count:
+    the iterations a warp pays under the per-thread exit."""
+    return float(iters.reshape(-1, 32).max(dim=1).values.float().mean())
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -558,9 +698,498 @@ def route_serving(dev) -> dict:
     return out
 
 
-def main() -> None:
+def early_exits(out, cap: int):
+    """(tiles,) bool: the tiles that stopped before every lane was done and
+    before the cap."""
+    tile = solve_mega.TILE
+    undone = (out[7] < 0.5).reshape(-1, tile).any(dim=1)
+    its = out[4].reshape(-1, tile).max(dim=1).values
+    return undone & (its < cap)
+
+
+def tile_stop_faults(out, n_needed: int, cap: int) -> int:
+    """Tiles that did not stop where the per-tile exit puts them (a tile
+    runs another iteration while fewer than n_needed of its lanes are done
+    and the cap is not reached), read from the outputs alone: a tile's
+    last iteration s is its largest iteration count, a lane undone at the
+    end ran all s, fewer than n_needed lanes were done before iteration s
+    (a lane done at iteration j reports j), and after s the count reached
+    n_needed or s is the cap."""
+    tile = solve_mega.TILE
+    its = out[4].reshape(-1, tile)
+    done = out[7].reshape(-1, tile) > 0.5
+    s = its.max(dim=1, keepdim=True).values
+    ran_short = (~done & (its != s)).any(dim=1)
+    late = (s[:, 0] > 0) & ((done & (its < s)).sum(dim=1) >= n_needed)
+    early = (done.sum(dim=1) < n_needed) & (s[:, 0] < cap)
+    return int((ran_short | late | early).sum())
+
+
+def rearmed_resume(out, every: int = 7):
+    """A pass-1 result as resume state with every `every`-th done lane
+    re-armed as the compact rescue re-arms a stalled lane: done cleared,
+    mu at the floor (1e-2 under the pair; weights x1 here), gnorm +inf."""
+    done, conv, mu, gnorm = out[7].clone(), out[3], out[6].clone(), \
+        out[5].clone()
+    pick = torch.zeros_like(done, dtype=torch.bool)
+    pick[::every] = True
+    pick &= done > 0.5
+    done[pick] = 0.0
+    mu[pick] = 1e-2
+    gnorm[pick] = float("inf")
+    return (done, conv, mu, gnorm), int(pick.sum())
+
+
+def lane_by_lane(ins, cfg, what: str, resume=None, gate: bool = True):
+    """Phase 9's comparison of the kernel and its plain version on the same
+    inputs and the same 128-lane tiles: the single-pass gates, their
+    numerics over the lanes converged on both sides (a lane stopped by its
+    tile or its cap, or stalled, holds an iterate away from a stationary
+    point; the fraction gates count it); the done flags equal on >= 0.999
+    of all lanes; as many tiles exited early on both sides (at least one
+    under done_frac < 1); and each side's tiles stopped exactly where the
+    per-tile exit puts them (`tile_stop_faults`). Raises on a broken gate
+    unless `gate` is False. Returns (record, kernel outputs, plain
+    outputs); the record's `ok` is the verdict."""
+    out_k, t_k, out_p, t_p = both_sides(ins, cfg, resume)
+    both = (out_k[3] > 0.5) & (out_p[3] > 0.5)
+    g = outputs_gates(out_k, out_p, cfg.n_steps, lanes=both)
+    du = (out_k[1] - out_p[1]).abs().amax(dim=(0, 1))
+    done_k, done_p = out_k[7] > 0.5, out_p[7] > 0.5
+    cap = cfg.max_sqp_iters
+    n_needed = solve_mega.resolve_knobs(cfg, torch.float32).n_done_needed
+    open_ = ~both
+    early = [int(early_exits(o, cap).sum()) for o in (out_k, out_p)]
+    rec = dict(
+        kernel_s=t_k, plain_s=t_p,
+        unconverged_lanes=int(open_.sum()),
+        unconverged_stalled_both=int((open_ & done_k & done_p).sum()),
+        unconverged_max_du=float(du[open_].max()) if open_.any() else 0.0,
+        done_flags_agree=float((done_k == done_p).float().mean()),
+        undone_lanes=[int((~done_k).sum()), int((~done_p).sum())],
+        early_exit_tiles=early,
+        tile_stop_faults=[tile_stop_faults(o, n_needed, cap)
+                          for o in (out_k, out_p)],
+        worst_lane=worst_lane(out_k, out_p),
+        worst_compared_cost=worst_lane(out_k, out_p, "cost", both), **g)
+    rec["ok"] = bool(
+        g["ok"] and rec["done_flags_agree"] >= 0.999
+        and rec["tile_stop_faults"] == [0, 0] and early[0] == early[1]
+        and (n_needed == solve_mega.TILE or early[0] > 0))
+    if gate and not rec["ok"]:
+        raise SystemExit(f"kernel disagrees with its plain version ({what}): "
+                         f"{rec}")
+    return rec, out_k, out_p
+
+
+# the seed of phase 9, at both batches
+LONG_SEED = 6
+
+
+def long_variants(dev, B: int, seed: int, gate: bool = True):
+    """Phase 9's two comparisons on one batch (`lane_by_lane`): done_frac =
+    0.97 cold, then done_frac = 1 resumed from the kernel's pass-1 result
+    with every 7th done lane re-armed. Yields (variant, record, (inputs,
+    config, resume, kernel outputs, plain outputs))."""
+    pass1 = dataclasses.replace(LONG, done_frac=LONG.compact_frac)
+    z0s, coeffs = scenarios(seed, B, dev)
+    ins = lane_inputs(z0s, coeffs, params(B, dev, False), LONG)
+    rec, out_k, out_p = lane_by_lane(
+        ins, pass1, f"N=48, done_frac=0.97, B={B}, seed {seed}", gate=gate)
+    rec.update(n_done_needed=solve_mega.resolve_knobs(
+        pass1, torch.float32).n_done_needed, tiles=B // solve_mega.TILE)
+    yield "done_frac_0.97_cold", rec, (ins, pass1, None, out_k, out_p)
+    resume, n_rearmed = rearmed_resume(out_k)
+    ins = ins[:5] + (out_k[1],)
+    rec, out_k, out_p = lane_by_lane(
+        ins, LONG, f"N=48, resume, B={B}, seed {seed}", resume=resume,
+        gate=gate)
+    was_done = resume[0] > 0.5
+    if not bool((out_k[4][was_done] == 0).all()):
+        raise SystemExit("a lane resumed done was iterated")
+    rec.update(resumed_done=int(was_done.sum()),
+               resumed_stalled=int((was_done & (resume[1] < 0.5)).sum()),
+               rearmed=n_rearmed)
+    yield "resume_done_frac_1", rec, (ins, LONG, resume, out_k, out_p)
+
+
+def long_kernel_vs_plain(dev) -> float:
+    """Phase 9: resume state and the per-block exit, kernel against plain
+    version at B=8192 and B=131,072 (`long_variants`). Returns the largest
+    gated |du|."""
+    worst = 0.0
+    for B in (B_VERIFY, B_LONG):
+        for variant, rec, _ in long_variants(dev, B, LONG_SEED):
+            emit("long_kernel_vs_plain", variant=variant, seed=LONG_SEED,
+                 **rec)
+            worst = max(worst, rec["max_du"])
+    return worst
+
+
+# the lanes a survey record witnesses at most, and the |du| at which a
+# lane counts as parted between the two sides
+WITNESSES = 5
+PARTED_DU = 1e-4
+
+
+def suspects(rec, out_k, out_p, cap: int) -> list:
+    """The lanes a broken phase-9 gate points at, in this order: lanes
+    converged on both sides beyond a numeric limit; then, in tiles that
+    stopped apart (at different iterations, or early on one side only),
+    the lanes whose done flags differ, the lanes done on both sides at
+    different iterations (those decide a tile's stop), and the others
+    whose iteration counts differ."""
+    lim = rec["limits"]
+    both = (out_k[3] > 0.5) & (out_p[3] > 0.5)
+    du = (out_k[1] - out_p[1]).abs().amax(dim=(0, 1))
+    dc = (out_k[2] - out_p[2]).abs() / (1.0 + out_p[2].abs())
+    over = both & (dc <= 1e-3) & ((du > lim["max_du"])
+                                  | (dc > lim["max_rel_dcost"]))
+    tile = solve_mega.TILE
+    stop_k, stop_p = (o[4].reshape(-1, tile).max(dim=1).values
+                      for o in (out_k, out_p))
+    apart = ((stop_k != stop_p) | (early_exits(out_k, cap)
+                                   != early_exits(out_p, cap)))
+    apart = apart.repeat_interleave(tile)
+    done_k, done_p = out_k[7] > 0.5, out_p[7] > 0.5
+    flag = apart & (done_k != done_p)
+    its = apart & ~flag & (out_k[4] != out_p[4])
+    lanes = []
+    for m in (over, flag, its & done_k, its & ~done_k):
+        lanes += torch.nonzero(m).flatten().tolist()
+    return lanes[:WITNESSES]
+
+
+def witness(ins, cfg, resume, out_k, out_p, lane: int) -> dict:
+    """Where one lane parts between the kernel and its plain version, and
+    how far each side's answer lies from float64. The lane's tile alone
+    (its exit depends on no other lane) runs on both sides with the
+    iteration cap at 1, 2, ... up to the lane's count: per cap the lane's
+    |du| and each side's (cost, mu, conv, done), and the first cap after
+    which |du| > PARTED_DU. Then the plain version solves the tile in
+    float64 with the knobs float32 resolves: each side's |du| and relative
+    cost from that solve."""
+    tile = solve_mega.TILE
+    t0 = lane // tile * tile
+    i = lane - t0
+    sub = [a[..., t0:t0 + tile] for a in ins]
+    res = None if resume is None else [r[t0:t0 + tile] for r in resume]
+    n_it = int(max(out_k[4][lane], out_p[4][lane]))
+    trace, parted = [], None
+
+    def state(o):
+        return [float(o[q][i]) for q in (2, 6, 3, 7)]
+
+    for j in range(1, n_it + 1):
+        cj = dataclasses.replace(cfg, max_sqp_iters=j)
+        k = solve_mega.solve_mega_cuda(*sub, cj, resume=res)
+        p = solve_mega.solve_mega_plain(*sub, cj, resume=res)
+        du = float((k[1][..., i] - p[1][..., i]).abs().max())
+        trace.append({"cap": j, "du": du, "kernel": state(k),
+                      "plain": state(p)})
+        if parted is None and du > PARTED_DU:
+            parted = j
+    f32, f64 = torch.float32, torch.float64
+    c64 = dataclasses.replace(
+        cfg, ddp=True, ddp_gate=cfg.gate_for(False, f32),
+        mu_init=cfg.mu_init_for(f32), ls_iters=cfg.ls_for(f32),
+        tol_cost=10.0 * float(torch.finfo(f32).eps))
+    o64 = solve_mega.solve_mega_plain(
+        *[a.to(f64) for a in sub], c64,
+        resume=None if res is None else [r.to(f64) for r in res])
+    us64, cost64 = o64[1][..., i], float(o64[2][i])
+
+    def from64(o):
+        return [float((o[1][..., lane].double() - us64).abs().max()),
+                abs(float(o[2][lane]) - cost64) / (1.0 + abs(cost64))]
+
+    return {"lane": lane, "tile": lane // tile,
+            "iters": [float(out_k[4][lane]), float(out_p[4][lane])],
+            "du": float((out_k[1][..., lane] - out_p[1][..., lane]).abs()
+                        .max()),
+            "parted_at_cap": parted, "trace": trace,
+            "f64": {"cost": cost64, "iters": float(o64[4][i]),
+                    "conv": float(o64[3][i])},
+            "kernel_du_rel_dcost_from_f64": from64(out_k),
+            "plain_du_rel_dcost_from_f64": from64(out_p)}
+
+
+def survey(dev, seeds) -> None:
+    """`chip_smoke.py --survey SEED,...`: phase 9 on further seeds at
+    B=131,072, recorded rather than stopped at a broken gate: each
+    variant's record, and for a broken one a witness (`witness`) of each
+    lane the gate points at (`suspects`). Exits 1 if any gate broke."""
+    broke = []
+    for seed in seeds:
+        for variant, rec, (ins, cfg, res, out_k, out_p) in long_variants(
+                dev, B_LONG, seed, gate=False):
+            if not rec["ok"]:
+                broke.append((seed, variant))
+                rec["witnesses"] = [
+                    witness(ins, cfg, res, out_k, out_p, lane)
+                    for lane in suspects(rec, out_k, out_p,
+                                         cfg.max_sqp_iters)]
+            emit("survey", variant=variant, seed=seed, **rec)
+    emit("survey_verdict", seeds=list(seeds), broken=broke)
+    if broke:
+        raise SystemExit(1)
+
+
+def schedule_against_plain(ins, cfg, what: str, compact: bool) -> tuple:
+    """A schedule with its passes on the kernel against the same schedule
+    on the plain version, on the same inputs (`compact`: the compact
+    rule); raises on a broken gate. Returns (gates, plain seconds)."""
+    kernel = solve_mega.solve_mega_scheduled(*ins, cfg)
+    plain, plain_s = host_s(lambda: solve_mega.solve_mega_scheduled(
+        *ins, cfg, plain=True))
+    g = outputs_gates(kernel, plain, cfg.n_steps, compact)
+    g["worst_lane"] = worst_lane(kernel, plain)
+    if not g["ok"]:
+        raise SystemExit(f"the schedule disagrees with its plain version "
+                         f"({what}): {g}")
+    return g, plain_s
+
+
+def compact_run(dev, cfg, B: int, seed: int, reps: int) -> dict:
+    """`batch_solve_lane` under "auto" (compact at N > 36): warm-up, then
+    `reps` solves timed on the host clock with every count read just
+    after. Raises unless compaction was observed engaged on every solve:
+    two passes, the second on a tail of whole tiles smaller than the
+    batch, as the schedule's own counters show."""
+    z0s, coeffs = scenarios(seed, B, dev)
+    p = params(B, dev, False)
+    batch_solve_lane(z0s, coeffs, p, cfg)            # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        res = batch_solve_lane(z0s, coeffs, p, cfg)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps
+    counts = {"launches": solve_mega.launches, "passes": solve_mega.passes,
+              "tail_lanes": solve_mega.tail_lanes}
+    n_tail = counts["tail_lanes"] // reps
+    tile = solve_mega.TILE
+    if (counts["launches"], counts["passes"]) != (2 * reps, 2 * reps) or not (
+            counts["tail_lanes"] == reps * n_tail and 0 < n_tail < B
+            and n_tail % tile == 0):
+        raise SystemExit(f"compaction not engaged over {reps} solves: "
+                         f"{counts}")
+    check_result(res, B, cfg.n_steps)
+    need = int(solve_mega.last_need)
+    conv = float(res.converged.float().mean())
+    if conv < 0.99:
+        raise SystemExit(f"N={cfg.n_steps} converged fraction {conv} < 0.99")
+    return dict(z0s=z0s, coeffs=coeffs, p=p, res=res, wall=wall,
+                out=dict(batch=B, n_steps=cfg.n_steps,
+                         cap=cfg.max_sqp_iters, ms_per_solve=wall * 1e3,
+                         solves_per_s=B / wall, n_tail=n_tail,
+                         need_rescue=need,
+                         rescue_overflow=max(0, need - n_tail),
+                         converged_frac=conv,
+                         mean_iters=float(res.n_iters.float().mean()),
+                         max_iters=int(res.n_iters.max()),
+                         counts_over_reps=counts, reps=reps))
+
+
+def lockstep_ms(ins, reps: int):
+    """The per-block (lockstep) variant at n_done_needed = TILE, which
+    computes what the per-thread variant does: its device time, and
+    whether its outputs equal the per-thread variant's."""
+    single = dataclasses.replace(LONG, schedule="single")
+    ms = cuda_ms(lambda: solve_mega.solve_mega_cuda(*ins, single,
+                                                    lockstep=True), reps)
+    lock = solve_mega.solve_mega_cuda(*ins, single, lockstep=True)
+    thread = solve_mega.solve_mega_cuda(*ins, single)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(lock, thread))
+    return ms, same
+
+
+def long_main_path(dev) -> dict:
+    """Phase 10: the long-horizon main path, N=48, B=131,072."""
+    reps = 3
+    run = compact_run(dev, LONG, B_LONG, 7, reps)
+    out = run["out"]
+    ins = lane_inputs(run["z0s"], run["coeffs"], run["p"], LONG)
+    out["device_ms_per_solve"] = cuda_ms(
+        lambda: solve_mega.solve_mega_scheduled(*ins, LONG), reps)
+    with KernelTimes() as kt:
+        solve_mega.solve_mega_scheduled(*ins, LONG)
+    passes = kt.launches()
+    out["passes"] = [{"lanes": lanes, "kernel_ms": ms, "bound_ms": b[0],
+                      "bound_by": b[1], "mean_warp_max_iters": wm}
+                     for ms, b, lanes, wm in passes]
+    # the launches seen here are the schedule's two passes, on the lanes
+    # its counters reported
+    if [c[2] for c in passes] != [B_LONG, out["n_tail"]]:
+        raise SystemExit(f"the compact schedule launched on "
+                         f"{[c[2] for c in passes]} lanes, not "
+                         f"{[B_LONG, out['n_tail']]}")
+    kernel_ms = sum(c[0] for c in passes)
+    bound = (sum(c[1][0] for c in passes),
+             max(passes, key=lambda c: c[1][0])[1][1])
+    # the single pass at the same shape
+    single = dataclasses.replace(LONG, schedule="single")
+    out_s = solve_mega.solve_mega_cuda(*ins, single)
+    torch.cuda.synchronize()
+    single_ms = cuda_ms(lambda: solve_mega.solve_mega_cuda(*ins, single),
+                        reps)
+    sb = mega_bound(ins, out_s, single, out_s[4])
+    out["single_pass"] = dict(
+        kernel_ms=single_ms, solves_per_s=B_LONG / (single_ms / 1e3),
+        bound_ms=sb[0], bound_by=sb[1],
+        converged_frac=float((out_s[3] > 0.5).float().mean()),
+        mean_iters=float(out_s[4].mean()), max_iters=int(out_s[4].max()),
+        mean_warp_max_iters=warp_max_iters(out_s[4]))
+    lock_ms, same = lockstep_ms(ins, reps)
+    out["lockstep_per_block_ms"] = lock_ms
+    out["lockstep_equals_per_thread"] = same
+    if not same:
+        raise SystemExit("the per-block loop at n_done_needed = 128 differs "
+                         "from the per-thread loop")
+    g, plain_s = schedule_against_plain(ins, LONG, "N=48", compact=True)
+    out.update(kernel_ms=kernel_ms, bound_ms=bound[0], bound_by=bound[1],
+               plain_ms=plain_s * 1e3, vs_plain=g)
+    emit("long_main_path", **out)
+    return out
+
+
+def longest_path(dev) -> dict:
+    """Phase 11: N=100 at cap 45, B=16,384, through the same path, and
+    against the plain compact schedule on the same inputs."""
+    run = compact_run(dev, LONGEST, B_LONGEST, 10, 2)
+    out = run["out"]
+    ins = lane_inputs(run["z0s"], run["coeffs"], run["p"], LONGEST)
+    g, plain_s = schedule_against_plain(ins, LONGEST, "N=100", compact=True)
+    out.update(plain_s=plain_s, vs_plain=g)
+    emit("longest_path", **out)
+    return out
+
+
+def sorted_schedule(dev) -> dict:
+    """Phase 12: the sorted two passes against the single pass, N=30,
+    B=131,072 (the checks of the JAX package's sorted-schedule test), and
+    against the plain sorted schedule on the same inputs at the
+    single-pass gates (at done_frac = 1 a lane's result does not depend on
+    the tile the sort puts it in)."""
+    B, reps = B_LONG, 3
+    z0s, coeffs = scenarios(11, B, dev)
+    p = params(B, dev, False)
+    single = dataclasses.replace(PROD, schedule="single")
+    srt = dataclasses.replace(PROD, schedule="sorted", presolve_iters=3)
+    ins = lane_inputs(z0s, coeffs, p, PROD)
+    res1 = batch_solve_lane(z0s, coeffs, p, single)
+    reset_launches()
+    res2 = batch_solve_lane(z0s, coeffs, p, srt)
+    torch.cuda.synchronize()
+    counts = (solve_mega.launches, solve_mega.passes)
+    if counts != (2, 2):
+        raise SystemExit(f"sorted ran {counts} launches/passes, not 2")
+    ms1 = cuda_ms(lambda: solve_mega.solve_mega_scheduled(*ins, single),
+                  reps)
+    ms2 = cuda_ms(lambda: solve_mega.solve_mega_scheduled(*ins, srt), reps)
+    f1 = float(res1.converged.float().mean())
+    f2 = float(res2.converged.float().mean())
+    both = res1.converged & res2.converged
+    du = float((res1.us - res2.us).abs().amax(dim=(1, 2))[both].max())
+    dc = float(((res1.cost - res2.cost).abs()
+                / res1.cost.abs().clamp(min=1.0))[both].max())
+    out = dict(batch=B, single_ms=ms1, sorted_ms=ms2,
+               single_solves_per_s=B / (ms1 / 1e3),
+               sorted_solves_per_s=B / (ms2 / 1e3), conv_single=f1,
+               conv_sorted=f2, both_converged=float(both.float().mean()),
+               max_du_both=du, max_rel_dcost_both=dc,
+               max_iters_sorted=int(res2.n_iters.max()),
+               limits={"conv_drop": 0.05, "du": 2e-3, "rel_dcost": 1e-2,
+                       "iters": PROD.max_sqp_iters})
+    if not (f2 >= f1 - 0.05 and du < 2e-3 and dc < 1e-2
+            and out["max_iters_sorted"] <= PROD.max_sqp_iters
+            and bool(torch.isfinite(res2.us).all())):
+        raise SystemExit(f"sorted schedule off the single pass: {out}")
+    g, plain_s = schedule_against_plain(ins, srt, "sorted", compact=False)
+    out.update(plain_s=plain_s, vs_plain=g)
+    emit("sorted_schedule", **out)
+    return out
+
+
+def sweep_phase(dev) -> dict:
+    """Phase 13: the tuning sweep with and without the presort, on the
+    same candidates and scenarios."""
+    cands = sample_weight_candidates(
+        torch.Generator(device=dev).manual_seed(12), N_CANDIDATES,
+        MPCParams())
+    out = {"candidates": N_CANDIDATES, "scenarios": B_SWEEP}
+    runs = {}
+    for presort in (False, True):
+        def sweep():
+            return tuning_sweep(torch.Generator(device=dev).manual_seed(13),
+                                cands, B_SWEEP, PROD, presort=presort)
+        sweep()                                      # warm-up
+        reset_launches()
+        sw, secs = host_s(sweep)
+        runs[presort] = sw
+        out["presorted" if presort else "unsorted"] = dict(
+            seconds=secs, best_index=sw.best_index,
+            launches=solve_mega.launches,
+            converged_frac=sw.converged_frac.tolist(),
+            mean_iters=sw.mean_iters.tolist(),
+            mean_cost=sw.mean_cost.tolist())
+    a, b = runs[False], runs[True]
+    rel = float(((a.mean_cost - b.mean_cost).abs() / a.mean_cost.abs())
+                .max())
+    out["max_rel_mean_cost"] = rel
+    emit("sweep", **out)
+    if a.best_index != b.best_index or rel > 1e-4:
+        raise SystemExit(f"presort changed the sweep: best "
+                         f"{a.best_index} vs {b.best_index}, rel {rel}")
+    return out
+
+
+def long_serving(dev) -> dict:
+    """Phase 14: warm-started serving at N=48."""
+    z0s, coeffs = scenarios(14, B_LONG, dev)
+    p = params(B_LONG, dev, False)
+    receding_horizon_rollout(z0s, coeffs, p, LONG, n_cycles=1)   # set-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    tr = receding_horizon_rollout(z0s, coeffs, p, LONG,
+                                  n_cycles=LONG_CYCLES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"launches": solve_mega.launches, "passes": solve_mega.passes,
+              "tail_lanes": solve_mega.tail_lanes}
+    if counts["launches"] != 2 * LONG_CYCLES or not bool(
+            torch.isfinite(tr.us).all()):
+        raise SystemExit(f"long-horizon serving: {counts}, finite "
+                         f"{bool(torch.isfinite(tr.us).all())}")
+    # cycle 1's warm-started solve (the plant state after cycle 0 and cycle
+    # 0's solution shifted by one) against the plain compact schedule
+    us0 = batch_solve_lane(z0s, coeffs, p, LONG).us
+    warm = torch.cat([us0[:, 1:], us0[:, -1:]], dim=1)
+    g, plain_s = schedule_against_plain(
+        lane_inputs(tr.zs[1], coeffs, p, LONG, u_init=warm), LONG,
+        "N=48 serving, warm start", compact=True)
+    out = dict(robots=B_LONG, cycles=LONG_CYCLES,
+               control_cycles_per_s=B_LONG * LONG_CYCLES / wall,
+               ms_per_cycle=wall / LONG_CYCLES * 1e3,
+               mean_warm_iters=float(tr.iters[1:].float().mean()),
+               cold_iters=float(tr.iters[0].float().mean()),
+               converged_frac=float(tr.converged.float().mean()), **counts,
+               warm_plain_s=plain_s, vs_plain=g)
+    emit("long_serving", **out)
+    return out
+
+
+def main(argv) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none found")
+    seeds = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--survey":
+            raise SystemExit("usage: chip_smoke.py [--survey SEED,SEED,...]")
+        seeds = [int(s) for s in argv[1].split(",")]
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -570,14 +1199,20 @@ def main() -> None:
 
     # every kernel variant the phases launch, one nvcc each, all at once
     t0 = time.perf_counter()
+    cfgs = [LONG, dataclasses.replace(LONG, done_frac=0.97)]
+    if seeds is None:
+        cfgs += [c for _, c, _ in variants()] + [ROUTE_MEGA]
     pairs = {("solve_mega", solve_mega.resolve_knobs(cfg, torch.float32)
-              .variant) for cfg in [c for _, c, _ in variants()]
-             + [ROUTE_MEGA]}
-    pairs |= {("backward_fused", ()), ("forward", (N_ALPHA,))}
+              .variant) for cfg in cfgs}
+    if seeds is None:
+        pairs |= {("backward_fused", ()), ("forward", (N_ALPHA,))}
     builds = _build.build_many(sorted(pairs))
     emit("build", seconds=time.perf_counter() - t0,
          variants={f"{k}{v}": {"seconds": s, "ptxas": lines}
                    for (k, v), (s, lines) in builds.items()})
+    if seeds is not None:
+        survey(dev, seeds)
+        return
 
     max_err = kernel_vs_plain(dev)
     mp = main_path(dev)
@@ -586,6 +1221,12 @@ def main() -> None:
     st = stage_kernels_vs_plain(dev)
     rm = route_main_path(dev, st["plain_route_s"])
     route_serving(dev)
+    long_err = long_kernel_vs_plain(dev)
+    lm = long_main_path(dev)
+    longest_path(dev)
+    sorted_schedule(dev)
+    sweep_phase(dev)
+    long_serving(dev)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound):
         return {"name": name, "route": "cuda",
@@ -600,6 +1241,13 @@ def main() -> None:
               "mpc_ros_tpu/kernels/solve_pallas.py:53", mp["launches"],
               max_err, mp["kernel_ms"], mp["plain_ms"],
               (mp["bound_ms"], mp["bound_by"])),
+        # the same kernel on the long-horizon main path: both compact
+        # passes per solve (the per-block exit, then the resumed tail)
+        entry("solve_mega[N=48,compact]", "solve_mega.cu",
+              "mpc_ros_tpu/kernels/solve_pallas.py:53",
+              lm["counts_over_reps"]["launches"],
+              max(long_err, lm["vs_plain"]["max_du"]), lm["kernel_ms"],
+              lm["plain_ms"], (lm["bound_ms"], lm["bound_by"])),
         entry("backward_fused", "backward_fused.cu",
               "mpc_ros_tpu/kernels/backward_fused_pallas.py:52",
               rm["launches"]["backward_fused"], st["bwd_err"], rm["bwd_ms"],
@@ -615,4 +1263,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

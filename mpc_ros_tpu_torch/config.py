@@ -23,6 +23,10 @@ import torch
 
 Leaf = Any  # float or torch.Tensor (0-d or (B,))
 
+# the seven cost weights (what weight sweeps perturb)
+WEIGHT_NAMES = ("w_cte", "w_etheta", "w_vel", "w_angvel", "w_accel",
+                "w_angvel_d", "w_accel_d")
+
 
 @dataclasses.dataclass(frozen=True)
 class MPCParams:

@@ -50,17 +50,18 @@ class Kernel:
 
 
 def _mega_flags(variant) -> list:
-    n_ls, ddp, fast, adaptive = variant
+    n_ls, ddp, fast, adaptive, tile_exit = variant
     return [f"-DMEGA_NLS={int(n_ls)}", f"-DMEGA_DDP={int(bool(ddp))}",
             f"-DMEGA_FAST={int(bool(fast))}",
-            f"-DMEGA_ADAPT={int(bool(adaptive))}"]
+            f"-DMEGA_ADAPT={int(bool(adaptive))}",
+            f"-DMEGA_TILE_EXIT={int(bool(tile_exit))}"]
 
 
 KERNELS = {
-    # variant (n_ls, ddp, fast trig, adaptive weight scale)
+    # variant (n_ls, ddp, fast trig, adaptive weight scale, tile exit)
     "solve_mega": Kernel(
         "solve_mega.cu", "mpc_solve_mega_f32",
-        (_P,) * 19 + (_I,) * 4 + (_F,) * 7 + (_I,) * 4 + (_P,),
+        (_P,) * 20 + (_I,) * 5 + (_F,) * 7 + (_I,) * 5 + (_P,),
         _mega_flags),
     # variant () — one instantiation
     "backward_fused": Kernel(

@@ -9,10 +9,18 @@
 // linearized Riccati backward scan (gated GN->DDP terms, exact 2-D box QP
 // per stage), n_ls parallel line-search rollouts, the masked winner
 // re-roll and the per-lane mu / convergence / stall bookkeeping. The
-// per-tile early exit of the TPU kernel becomes a per-thread
-// `while (it < max_iters && !done)`; with done_frac = 1 this is exact,
-// because a done lane never updates, so its result does not depend on
-// which lanes share its tile.
+// per-tile early exit of the TPU kernel becomes, at done_frac = 1, a
+// per-thread `while (it < max_iters && !done)`; that is exact, because a
+// done lane never updates, so its result does not depend on which lanes
+// share its tile. Under done_frac < 1 (template flag TILE_EXIT) a block of
+// kTile threads is one tile: its threads iterate in lockstep, a done
+// thread skips the body, and at the top of every iteration
+// `__syncthreads_count(done)` stops the whole block once n_done_needed of
+// its lanes are done. No thread leaves that loop on its own, so every
+// thread reaches every barrier. An optional resume state (done, conv, mu,
+// gnorm) replaces the cold start of the loop state, as the TPU kernel's
+// `has_resume` does; the schedules (solve_mega.py) run the sorted and
+// compact two-pass solves with it.
 //
 // Layout. Every array is batch-minor, [...][lane], so a warp's 32 loads
 // and stores of one row are consecutive addresses. The trajectory lives in
@@ -45,6 +53,9 @@
 
 namespace mega {
 
+// One block is one tile of lanes (solve_mega.TILE in the wrapper).
+constexpr int kTile = 128;
+
 // packed-parameter rows (kernels/pack.py)
 enum {
   P_WCTE = 0, P_WETH, P_WVEL, P_WANG, P_WACC, P_WDANG, P_WDACC,
@@ -58,6 +69,7 @@ struct Args {
   const float* lb;    // (2, B)
   const float* ub;    // (2, B)
   const float* u0;    // (T, 2, B)
+  const float* resume;  // (4, B): done, conv, mu, gnorm; or null
   float* ss;          // (T+1, 8, B) out
   float* us;          // (T, 2, B) out
   float* cost;        // (B,) out
@@ -71,7 +83,7 @@ struct Args {
   float* traj_g;      // (T, 4, B)
   float* ks;          // (T, 2, B)
   float* Ks;          // (T, 2, 8, B)
-  int P, B, T, max_iters;
+  int P, B, T, max_iters, n_done_needed;
   float sign, tol_grad, tol_cost_eff, mu_min, mu_max, mu_factor, ddp_gate;
 };
 
@@ -204,10 +216,12 @@ __device__ __forceinline__ float feedback(float ub, float alpha, float k,
   return ub + alpha * k + sum;
 }
 
-template <int NLS, bool DDP, bool FAST, bool ADAPT>
-__global__ void __launch_bounds__(128)
+template <int NLS, bool DDP, bool FAST, bool ADAPT, bool TILE_EXIT>
+__global__ void __launch_bounds__(kTile)
     solve_mega_kernel(const Args a) {
   const int lane_i = blockIdx.x * blockDim.x + threadIdx.x;
+  // under TILE_EXIT the launcher takes B % kTile == 0 only, so no thread
+  // of a block returns here and misses the block's barriers
   if (lane_i >= a.B) return;
   const size_t B = a.B;
   const int T = a.T;
@@ -309,8 +323,23 @@ __global__ void __launch_bounds__(128)
   // ---------------- SQP loop -------------------------------------------
   float mu = mu_lo, n_small = 0.0f, done = 0.0f, conv = 0.0f;
   float gnorm = INFINITY, iters = 0.0f;
+  if (a.resume != nullptr) {
+    // warm restart from an earlier pass; the cost above is the rollout of
+    // this call's u0, n_small and iters restart at 0
+    done = a.resume[lane_i];
+    conv = a.resume[B + lane_i];
+    mu = a.resume[2 * B + lane_i];
+    gnorm = a.resume[3 * B + lane_i];
+  }
   int cur = 0;
-  for (int it = 0; it < a.max_iters && done < 0.5f; ++it) {
+  for (int it = 0; it < a.max_iters; ++it) {
+    if (TILE_EXIT) {
+      // the block decides together; every thread, done or not, gets here
+      if (__syncthreads_count(done > 0.5f) >= a.n_done_needed) break;
+      if (!(done < 0.5f)) continue;
+    } else if (!(done < 0.5f)) {
+      break;
+    }
     const float act = 1.0f - done;
     // gnorm starts at +inf, so the first iteration is pure GN
     const float g_ddp = (DDP && gnorm < a.ddp_gate) ? 1.0f : 0.0f;
@@ -715,23 +744,30 @@ __global__ void __launch_bounds__(128)
 #ifndef MEGA_ADAPT
 #define MEGA_ADAPT 1
 #endif
+#ifndef MEGA_TILE_EXIT
+#define MEGA_TILE_EXIT 0
+#endif
 
-// Error code for a request of a variant this library was not built for.
+// Error codes for a request of a variant this library was not built for,
+// and for a per-tile exit over a batch that is not whole tiles.
 #define MEGA_ERR_VARIANT 100000
+#define MEGA_ERR_TILE 100001
 
 extern "C" int mpc_solve_mega_f32(
     const void* z0, const void* cf, const void* par, const void* lb,
-    const void* ub, const void* u0, void* ss, void* us, void* cost,
-    void* conv, void* iters, void* gnorm, void* mu, void* done,
+    const void* ub, const void* u0, const void* resume, void* ss, void* us,
+    void* cost, void* conv, void* iters, void* gnorm, void* mu, void* done,
     void* traj_s, void* traj_u, void* traj_g, void* ks, void* Ks, int P,
-    int B, int T, int max_iters, float sign, float tol_grad,
-    float tol_cost_eff, float mu_min, float mu_max, float mu_factor,
-    float ddp_gate, int n_ls, int ddp, int fast, int adaptive,
-    void* stream) {
+    int B, int T, int max_iters, int n_done_needed, float sign,
+    float tol_grad, float tol_cost_eff, float mu_min, float mu_max,
+    float mu_factor, float ddp_gate, int n_ls, int ddp, int fast,
+    int adaptive, int tile_exit, void* stream) {
   if (n_ls != MEGA_NLS || (ddp != 0) != (MEGA_DDP != 0) ||
       (fast != 0) != (MEGA_FAST != 0) ||
-      (adaptive != 0) != (MEGA_ADAPT != 0))
+      (adaptive != 0) != (MEGA_ADAPT != 0) ||
+      (tile_exit != 0) != (MEGA_TILE_EXIT != 0))
     return MEGA_ERR_VARIANT;
+  if (MEGA_TILE_EXIT != 0 && B % mega::kTile != 0) return MEGA_ERR_TILE;
   mega::Args a;
   a.z0 = static_cast<const float*>(z0);
   a.cf = static_cast<const float*>(cf);
@@ -739,6 +775,7 @@ extern "C" int mpc_solve_mega_f32(
   a.lb = static_cast<const float*>(lb);
   a.ub = static_cast<const float*>(ub);
   a.u0 = static_cast<const float*>(u0);
+  a.resume = static_cast<const float*>(resume);
   a.ss = static_cast<float*>(ss);
   a.us = static_cast<float*>(us);
   a.cost = static_cast<float*>(cost);
@@ -756,6 +793,7 @@ extern "C" int mpc_solve_mega_f32(
   a.B = B;
   a.T = T;
   a.max_iters = max_iters;
+  a.n_done_needed = n_done_needed;
   a.sign = sign;
   a.tol_grad = tol_grad;
   a.tol_cost_eff = tol_cost_eff;
@@ -763,16 +801,19 @@ extern "C" int mpc_solve_mega_f32(
   a.mu_max = mu_max;
   a.mu_factor = mu_factor;
   a.ddp_gate = ddp_gate;
-  const int threads = 128;
+  const int threads = mega::kTile;
   const int blocks = (B + threads - 1) / threads;
   mega::solve_mega_kernel<MEGA_NLS, MEGA_DDP != 0, MEGA_FAST != 0,
-                          MEGA_ADAPT != 0>
+                          MEGA_ADAPT != 0, MEGA_TILE_EXIT != 0>
       <<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* mpc_cuda_error_string(int err) {
   if (err == MEGA_ERR_VARIANT)
-    return "library built for another (n_ls, ddp, fast, adaptive) variant";
+    return "library built for another (n_ls, ddp, fast, adaptive, "
+           "tile_exit) variant";
+  if (err == MEGA_ERR_TILE)
+    return "done_frac < 1 exits per 128-lane tile and needs B % 128 == 0";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -15,10 +15,11 @@ Inputs are batch-last: zT (6, B), cT (P, B), params (12, B) from
 (ss (T+1, 8, B), us (T, 2, B), cost, conv, iters, gnorm, mu, done), each
 of the last six (B,).
 
-This slice covers the diff-drive solve with `done_frac == 1`, ddp on or
-off, fast or exact trig, `scale_adaptive` on or off and per-lane
-parameters. Resume state, `done_frac < 1`, per-knot setpoints, blobs and
-the bicycle family are ROADMAP Queue 2, K1 stages (d)-(g).
+The port covers the diff-drive solve with ddp on or off, fast or exact
+trig, `scale_adaptive` on or off, per-lane parameters, resume state and
+the per-tile exit of `done_frac < 1`; `solve_mega_scheduled` runs it under
+the single, sorted and compact schedules. Per-knot setpoints, blobs and
+the bicycle family are ROADMAP Queue 2, K1 stages (e)-(g).
 
 `solve_mega` sends CPU tensors to `solve_mega_plain` and CUDA tensors to
 `solve_mega_cuda`, which launches the kernel or raises.
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 
 import torch
 
@@ -38,11 +40,29 @@ from .pack import (N_PAR, P_DT, P_RCTE, P_RETH, P_RVEL, P_WACC, P_WANG,
 _N = 8
 _M = 2
 
+# The batch tile: the lanes whose done count decides a `done_frac < 1`
+# exit together. It is the kernel's block (`kTile` in csrc/solve_mega.cu,
+# one thread per lane), and the plain version and the schedules tile the
+# batch the same way, so the CPU and the card compute the same schedule.
+# The JAX package picks sub * 128 lanes per Pallas program (`_pick_sub`,
+# sub in {8, 4, 2, 1}) to fill (8, 128) vregs within a 10 MiB VMEM budget;
+# neither constraint exists on Hopper, where a 128-thread block keeps
+# enough blocks in flight at any batch. The two agree where `_pick_sub`
+# returns sub = 1 (B an odd multiple of 128).
+TILE = 128
+
 # launches of the CUDA kernel by `solve_mega_cuda` (and nowhere else)
 launches = 0
+# What the schedules ran, counted by the schedule code itself: solve
+# passes (kernel launches on CUDA tensors, plain runs on CPU tensors), the
+# lanes handed to compact pass 2, and the lanes that needed pass 2 in the
+# last compact call (a 0-d tensor, read after the call; more than
+# `tail_lanes` added means stragglers kept their pass-1 iterate).
+passes = 0
+tail_lanes = 0
+last_need = None
 
-_PENDING = ("ROADMAP Queue 2, K1 stages (d)-(g): resume/done_frac with "
-            "the compact schedule, blobs, refs, bicycle")
+_PENDING = "ROADMAP Queue 2, K1 stages (e)-(g): blobs, refs, bicycle"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,11 +84,24 @@ class Knobs:
     ddp_gate: float
     fast_trig: bool
     adaptive: bool
+    n_done_needed: int
+    # the per-tile loop even at n_done_needed = TILE, where it computes
+    # what the per-lane exit does (to time the one against the other)
+    lockstep: bool = False
+
+    @property
+    def tile_exit(self) -> bool:
+        """The tile's lanes iterate together and the tile decides its exit:
+        under `done_frac < 1` (a tile stops before all its lanes are done),
+        or when asked for with `lockstep`."""
+        return self.lockstep or self.n_done_needed < TILE
 
     @property
     def variant(self) -> tuple:
-        """The kernel's template arguments (n_ls, ddp, fast, adaptive)."""
-        return (self.n_ls, self.ddp, self.fast_trig, self.adaptive)
+        """The kernel's template arguments (n_ls, ddp, fast, adaptive,
+        tile_exit)."""
+        return (self.n_ls, self.ddp, self.fast_trig, self.adaptive,
+                self.tile_exit)
 
 
 def resolve_knobs(cfg, dtype) -> Knobs:
@@ -76,10 +109,6 @@ def resolve_knobs(cfg, dtype) -> Knobs:
         raise NotImplementedError(
             f"solve_mega covers model='diff_drive' only, got "
             f"{cfg.model!r} ({_PENDING})")
-    if cfg.done_frac < 1.0:
-        raise NotImplementedError(
-            f"solve_mega covers done_frac=1 only, got {cfg.done_frac} "
-            f"({_PENDING})")
     if cfg.trig not in ("fast", "exact"):
         raise ValueError(f"trig must be 'fast' or 'exact', got {cfg.trig!r}")
     return Knobs(
@@ -96,14 +125,26 @@ def resolve_knobs(cfg, dtype) -> Knobs:
         ddp_gate=float(cfg.gate_for(False, dtype)),
         fast_trig=cfg.trig == "fast",
         adaptive=bool(cfg.scale_adaptive),
+        # a tile runs while fewer of its lanes are done (solve_pallas)
+        n_done_needed=(TILE if cfg.done_frac >= 1.0 else
+                       min(TILE, int(math.ceil(cfg.done_frac * TILE)))),
     )
 
 
-def _check_inputs(zT, cT, pp, lb, ub, u0, T):
+def _check_inputs(zT, cT, pp, lb, ub, u0, kn, resume=None):
     B = zT.shape[-1]
     want = {"zT": (zT, (6, B)), "params": (pp, (N_PAR, B)),
             "lb": (lb, (_M, B)), "ub": (ub, (_M, B)),
-            "u0": (u0, (T, _M, B))}
+            "u0": (u0, (kn.T, _M, B))}
+    if resume is not None:
+        if len(resume) != 4:
+            raise ValueError("resume is (done, conv, mu, gnorm), got "
+                             f"{len(resume)} arrays")
+        want.update({f"resume[{i}]": (r, (B,)) for i, r in enumerate(resume)})
+    if kn.tile_exit and B % TILE:
+        raise ValueError(f"the per-tile loop (done_frac < 1, or lockstep) "
+                         f"runs {TILE}-lane tiles and needs B % {TILE} == 0, "
+                         f"got B={B}")
     for name, (a, shape) in want.items():
         if tuple(a.shape) != shape:
             raise ValueError(f"{name}: expected shape {shape}, got "
@@ -116,16 +157,23 @@ def _check_inputs(zT, cT, pp, lb, ub, u0, T):
 # --------------------------------------------------------------- plain
 
 
-def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg):
+def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None):
     """The plain PyTorch version of the kernel: `_kernel` of
-    `solve_pallas.py` transcribed onto (B,)-vectors with the whole batch
-    as one tile — the same structured-sparsity products in the same
-    operation order, and an `act` mask so done lanes never update (with
-    done_frac = 1 a lane's result does not depend on its neighbours)."""
+    `solve_pallas.py` transcribed onto (B,)-vectors — the same
+    structured-sparsity products in the same operation order, and an `act`
+    mask so done lanes never update (with done_frac = 1 a lane's result
+    does not depend on its neighbours).
+
+    `resume`: optional (done, conv, mu, gnorm), each (B,), from an earlier
+    pass; the cost is recomputed by the initial rollout of `u0`, and the
+    small-step counter and iteration count restart at 0. With done_frac < 1
+    the batch runs in tiles of TILE lanes, as the kernel's blocks do: a
+    tile stops once ceil(done_frac * TILE) of its lanes are done, and its
+    lanes are masked out of every update from then on."""
     dtype = zT.dtype
     kn = resolve_knobs(cfg, dtype)
     T = kn.T
-    B = _check_inputs(zT, cT, pp, lb, ub, u0, T)
+    B = _check_inputs(zT, cT, pp, lb, ub, u0, kn, resume)
     dev = zT.device
     sign = kn.sign
     n_alpha = kn.n_ls
@@ -251,12 +299,15 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg):
     cost = acc + term_cost(traj_s[0][T])
 
     # ---- SQP loop ----
-    mu = mu_lo
     n_small = zeros
-    done = zeros
-    conv = zeros
-    gnorm = torch.full((B,), float("inf"), dtype=dtype, device=dev)
     iters = zeros
+    if resume is None:
+        mu = mu_lo
+        done = zeros
+        conv = zeros
+        gnorm = torch.full((B,), float("inf"), dtype=dtype, device=dev)
+    else:
+        done, conv, mu, gnorm = (r.to(dtype) for r in resume)
     cur = 0
     it = 0
     lss_idx = (None, None, None, wv2, wc2, we2)
@@ -271,8 +322,19 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg):
             out = out + a
         return out
 
-    while it < kn.max_iters and bool((done < 0.5).any()):
-        act = 1.0 - done
+    while it < kn.max_iters:
+        if kn.tile_exit:
+            # per tile, as the kernel's blocks: run while fewer than
+            # n_done_needed of the tile's lanes are done
+            running = (done.reshape(-1, TILE).sum(dim=1)
+                       < kn.n_done_needed - 0.5)
+            if not bool(running.any()):
+                break
+            act = (1.0 - done) * running.to(dtype).repeat_interleave(TILE)
+        else:
+            if not bool((done < 0.5).any()):
+                break
+            act = 1.0 - done
         g_ddp = (gnorm < kn.ddp_gate).to(dtype) if kn.ddp else None
 
         # ---- backward scan with inline linearization ----
@@ -543,13 +605,18 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg):
 # ---------------------------------------------------------------- CUDA
 
 
-def solve_mega_cuda(zT, cT, pp, lb, ub, u0, cfg):
+def solve_mega_cuda(zT, cT, pp, lb, ub, u0, cfg, resume=None,
+                    lockstep=False):
     """Launch the hand-written kernel (`csrc/solve_mega.cu`) on CUDA
     float32 tensors; raises on anything else. Allocates every output and
     scratch buffer; launches on the current stream and does not
-    synchronize."""
+    synchronize. `lockstep=True` launches the per-block loop of
+    `done_frac < 1` whatever `done_frac`; at `done_frac = 1` it computes
+    what the per-thread loop does, so the two can be timed against each
+    other."""
     global launches
-    args = (zT, cT, pp, lb, ub, u0)
+    args = (zT, cT, pp, lb, ub, u0) + (() if resume is None else
+                                       tuple(resume))
     for a in args:
         if not a.is_cuda:
             raise ValueError("solve_mega_cuda needs CUDA tensors, got one "
@@ -559,9 +626,10 @@ def solve_mega_cuda(zT, cT, pp, lb, ub, u0, cfg):
                              f"{a.dtype}")
         if a.device != zT.device:
             raise ValueError("solve_mega_cuda inputs must share a device")
-    kn = resolve_knobs(cfg, torch.float32)
+    kn = dataclasses.replace(resolve_knobs(cfg, torch.float32),
+                             lockstep=bool(lockstep))
     T = kn.T
-    B = _check_inputs(zT, cT, pp, lb, ub, u0, T)
+    B = _check_inputs(zT, cT, pp, lb, ub, u0, kn, resume)
     P = cT.shape[0]
     if P > 8:
         raise ValueError(f"the kernel takes polynomials up to order 7 "
@@ -569,7 +637,9 @@ def solve_mega_cuda(zT, cT, pp, lb, ub, u0, cfg):
     if T < 1 or not 1 <= kn.n_ls <= 8:
         raise ValueError(f"the kernel takes T >= 1 and 1 <= n_ls <= 8, "
                          f"got T={T}, n_ls={kn.n_ls}")
-    args = [a.contiguous() for a in args]
+    ins = [a.contiguous() for a in args[:6]]
+    # (4, B): done, conv, mu, gnorm
+    res = None if resume is None else torch.stack(list(resume))
     from . import _build
 
     launch = _build.load("solve_mega", kn.variant)
@@ -583,46 +653,152 @@ def solve_mega_cuda(zT, cT, pp, lb, ub, u0, cfg):
     outs = [empty(B) for _ in range(6)]
     scratch = [empty(2, T + 1, 6, B), empty(2, T, _M, B), empty(T, 4, B),
                empty(T, _M, B), empty(T, _M, _N, B)]
-    ptr = [ctypes.c_void_p(a.data_ptr()) for a in args + [ss, us] + outs
-           + scratch]
+    ptr = [ctypes.c_void_p(a.data_ptr()) for a in ins]
+    ptr.append(ctypes.c_void_p(None if res is None else res.data_ptr()))
+    ptr += [ctypes.c_void_p(a.data_ptr()) for a in [ss, us] + outs + scratch]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(
             *ptr, ctypes.c_int(P), ctypes.c_int(B), ctypes.c_int(T),
-            ctypes.c_int(kn.max_iters), ctypes.c_float(kn.sign),
+            ctypes.c_int(kn.max_iters), ctypes.c_int(kn.n_done_needed),
+            ctypes.c_float(kn.sign),
             ctypes.c_float(kn.tol_grad), ctypes.c_float(kn.tol_cost_eff),
             ctypes.c_float(kn.mu_min), ctypes.c_float(kn.mu_max),
             ctypes.c_float(kn.mu_factor), ctypes.c_float(kn.ddp_gate),
             ctypes.c_int(kn.n_ls), ctypes.c_int(int(kn.ddp)),
             ctypes.c_int(int(kn.fast_trig)), ctypes.c_int(int(kn.adaptive)),
-            ctypes.c_void_p(stream))
+            ctypes.c_int(int(kn.tile_exit)), ctypes.c_void_p(stream))
     _build.check(launch, err, "solve_mega")
     launches += 1
     return (ss, us, *outs)
 
 
-def solve_mega(zT, cT, pp, lb, ub, u0, cfg):
+def solve_mega(zT, cT, pp, lb, ub, u0, cfg, resume=None):
     """The megakernel solve: CPU tensors run `solve_mega_plain`, CUDA
     tensors the kernel (float32 only; anything else raises)."""
     if zT.is_cuda:
-        return solve_mega_cuda(zT, cT, pp, lb, ub, u0, cfg)
-    return solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg)
+        return solve_mega_cuda(zT, cT, pp, lb, ub, u0, cfg, resume)
+    return solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume)
 
 
-def solve_mega_scheduled(zT, cT, pp, lb, ub, u0, cfg):
+# ------------------------------------------------------------ schedules
+
+
+def _pass(zT, cT, pp, lb, ub, u0, cfg, plain, resume=None):
+    """One solve pass of a schedule, counted."""
+    global passes
+    passes += 1
+    if plain:
+        return solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume)
+    return solve_mega(zT, cT, pp, lb, ub, u0, cfg, resume)
+
+
+def solve_mega_scheduled(zT, cT, pp, lb, ub, u0, cfg, plain=False):
     """The megakernel under the SolverConfig iteration schedule
-    (counterpart of `solve_pallas_scheduled`). This slice runs the single
-    pass, which is what "auto" resolves to at N <= 36; the compact and
-    sorted schedules raise."""
+    (counterpart of `solve_pallas_scheduled`): "auto" resolves to the
+    compact schedule at n_steps > 36 and to the single pass otherwise;
+    "sorted" with 1 <= presolve_iters < max_sqp_iters runs the sorted two
+    passes; anything else one pass. `plain=True` runs every pass on the
+    plain version, whatever the device (to hold the kernel's schedule
+    against it on the card)."""
     schedule = cfg.schedule
     if schedule == "auto" and cfg.n_steps > 36:
         schedule = "compact"
-    two_pass = (cfg.schedule == "sorted"
-                and 1 <= cfg.presolve_iters < cfg.max_sqp_iters)
-    if schedule == "compact" or two_pass:
-        raise NotImplementedError(
-            f"schedule {cfg.schedule!r} at n_steps={cfg.n_steps} resolves "
-            f"to the {'compact' if schedule == 'compact' else 'sorted'} "
-            f"schedule, which is not ported yet (ROADMAP Queue 2, K1 stage "
-            f"(d) and K3)")
-    return solve_mega(zT, cT, pp, lb, ub, u0, cfg)
+    if schedule == "compact":
+        return _solve_compact(zT, cT, pp, lb, ub, u0, cfg, plain)
+    k1 = cfg.presolve_iters
+    if cfg.schedule == "sorted" and 1 <= k1 < cfg.max_sqp_iters:
+        return _solve_sorted(zT, cT, pp, lb, ub, u0, cfg, plain)
+    return _pass(zT, cT, pp, lb, ub, u0, cfg, plain)
+
+
+def _solve_sorted(zT, cT, pp, lb, ub, u0, cfg, plain):
+    """Sorted two passes (`solve_pallas_scheduled`): `presolve_iters`
+    iterations for every lane; a stable sort putting done lanes first and
+    the rest by projected gradient; the remaining budget on the permuted
+    batch, resumed; the outputs back in the caller's order, with the two
+    passes' iterations added."""
+    k1 = cfg.presolve_iters
+    cfg1 = dataclasses.replace(cfg, max_sqp_iters=k1)
+    cfg2 = dataclasses.replace(cfg, max_sqp_iters=cfg.max_sqp_iters - k1)
+    ss1, us1, cost1, conv1, it1, gn1, mu1, done1 = _pass(
+        zT, cT, pp, lb, ub, u0, cfg1, plain)
+    key = torch.where(done1 > 0.5, torch.full_like(gn1, -1.0), gn1)
+    # stable, as jnp.argsort: equal keys keep their order, so lanes land
+    # in the same tiles as in the JAX package
+    perm = torch.argsort(key, stable=True)
+    inv_perm = torch.argsort(perm, stable=True)
+
+    def tk(a):
+        return a.index_select(-1, perm)
+
+    outs = _pass(tk(zT), tk(cT), tk(pp), tk(lb), tk(ub), tk(us1), cfg2,
+                 plain, resume=(tk(done1), tk(conv1), tk(mu1), tk(gn1)))
+    ss, us, cost, conv, it2, gnorm, mu, done = (
+        a.index_select(-1, inv_perm) for a in outs)
+    return ss, us, cost, conv, it1 + it2, gnorm, mu, done
+
+
+def _solve_compact(zT, cT, pp, lb, ub, u0, cfg, plain):
+    """Compact straggler schedule (`_solve_compact` of the JAX package).
+
+    Pass 1 runs the whole batch with each tile stopping once
+    `compact_frac` of its lanes are done. The lanes that still need work
+    (stable order; under the long-horizon pair also the stalled ones, done
+    but not converged) are gathered into a tile-granular tail of
+    ceil(compact_tail * B / TILE) * TILE lanes, padded with done lanes.
+    Pass 2 resumes the tail to completion and the results are scattered
+    back. Under the pair, pass 2 runs the conservative gate 0.75 at the
+    same mu floor 1e-2 with twice the iteration budget, and stalled lanes
+    re-enter with done cleared, mu reset to the (weight-scaled) floor and
+    gnorm at +inf. Lanes that need pass 2 beyond the tail keep their
+    pass-1 iterate and report unconverged; `last_need` counts them in."""
+    global tail_lanes, last_need
+    B = zT.shape[-1]
+    dtype = zT.dtype
+    n_tail = int(-(-B * cfg.compact_tail // TILE)) * TILE
+    n_tail = max(TILE, min(n_tail, B))
+    if n_tail >= B:
+        # batch too small for a compaction win — single pass
+        return _pass(zT, cT, pp, lb, ub, u0, cfg, plain)
+    cfg1 = dataclasses.replace(cfg, done_frac=cfg.compact_frac)
+    ss1, us1, cost1, conv1, it1, gn1, mu1, done1 = _pass(
+        zT, cT, pp, lb, ub, u0, cfg1, plain)
+    pair = cfg._long_horizon_pair(dtype, False)
+    need = ((done1 < 0.5) | (conv1 < 0.5)) if pair else done1 < 0.5
+    last_need = need.sum()
+    sel = torch.argsort((~need).to(torch.uint8), stable=True)[:n_tail]
+
+    def tk(a):
+        return a.index_select(-1, sel)
+
+    cfg2 = dataclasses.replace(cfg, done_frac=1.0)
+    if pair:
+        cfg2 = dataclasses.replace(cfg2, ddp_gate=0.75, mu_init=1e-2,
+                                   max_sqp_iters=2 * cfg.max_sqp_iters)
+    d1s, c1s, m1s, g1s = tk(done1), tk(conv1), tk(mu1), tk(gn1)
+    if pair:
+        stalled1 = (d1s > 0.5) & (c1s < 0.5)
+        floor2 = torch.full_like(m1s, cfg2.mu_init_for(dtype, False))
+        if cfg.scale_adaptive:
+            # the kernel's mu floor is weight-scaled per lane, and so is
+            # the reset: s = max(1, sum(w) / 470)
+            pt = tk(pp)
+            floor2 = floor2 * torch.clamp(
+                (pt[P_WCTE] + pt[P_WETH] + pt[P_WVEL] + pt[P_WANG]
+                 + pt[P_WACC] + pt[P_WDANG] + pt[P_WDACC]) * (1.0 / 470.0),
+                min=1.0)
+        d1s = torch.where(stalled1, torch.zeros_like(d1s), d1s)
+        m1s = torch.where(stalled1, floor2, m1s)
+        g1s = torch.where(stalled1, torch.full_like(g1s, float("inf")), g1s)
+    tail_lanes += n_tail
+    ss2, us2, cost2, conv2, it2, gn2, mu2, done2 = _pass(
+        tk(zT), tk(cT), tk(pp), tk(lb), tk(ub), tk(us1), cfg2, plain,
+        resume=(d1s, c1s, m1s, g1s))
+
+    def scat(full, tail):
+        return full.index_copy(full.dim() - 1, sel, tail)
+
+    return (scat(ss1, ss2), scat(us1, us2), scat(cost1, cost2),
+            scat(conv1, conv2), it1.index_add(0, sel, it2), scat(gn1, gn2),
+            scat(mu1, mu2), scat(done1, done2))

@@ -9,8 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-WEIGHT_NAMES = ("w_cte", "w_etheta", "w_vel", "w_angvel", "w_accel",
-                "w_angvel_d", "w_accel_d")
+from .config import WEIGHT_NAMES
 
 
 def numpy_scenarios(seed: int, batch: int, pose_scale: float = 0.3,

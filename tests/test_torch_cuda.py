@@ -1,7 +1,8 @@
 """Tests that need an NVIDIA GPU (marker `cuda`; they skip without one):
-the three kernels against their plain versions on the card, the main path
-and the two-kernel route launching them, and the XLA lane path taking what
-the kernels do not. Run on the card with
+the three kernels against their plain versions on the card (the solve
+kernel also with resume state and the per-block exit), the main path, the
+long-horizon compact schedule and the two-kernel route launching them, and
+the XLA lane path taking what the kernels do not. Run on the card with
 `python -m pytest --noconftest tests/test_torch_cuda.py` (tests/conftest.py
 configures JAX, which the card's machine need not have).
 """
@@ -176,3 +177,81 @@ def test_route_launches_each_kernel_once_per_iteration(dev):
                      plain.converged.cpu(), plain.n_iters.cpu(), 30)
     assert g["ok"], g
     assert _launch_counts()[1:] == (before[1] + its, before[2] + its)
+
+
+# the long-horizon configuration: N = 48 at the cap round(0.45 N) = 22,
+# auto knobs (the long-horizon pair)
+LONG = SolverConfig(n_steps=48, max_sqp_iters=22, tol_grad=1e-4)
+
+
+def _gates(k, p, n_steps):
+    return parity_gates(k[1].permute(2, 0, 1).cpu(), k[2].cpu(), k[3].cpu(),
+                        k[4].cpu(), p[1].permute(2, 0, 1).cpu(), p[2].cpu(),
+                        p[3].cpu(), p[4].cpu(), n_steps)
+
+
+@pytest.mark.parametrize("case", ["tile_exit", "resume"])
+def test_kernel_tile_exit_and_resume_match_plain(dev, case):
+    """done_frac = 0.97 (the per-block exit) cold, and done_frac = 1
+    resumed from a pass-1 result with some done lanes re-armed, against
+    the plain version on the same 128-lane tiles."""
+    z0s, coeffs = _scen(dev, 8192, seed=5)
+    ins = lane_inputs(z0s, coeffs, MPCParams().astype(torch.float32, dev),
+                      LONG)
+    cfg, resume = LONG, None
+    pass1 = dataclasses.replace(LONG, done_frac=0.97)
+    if case == "tile_exit":
+        cfg = pass1
+    else:
+        p1 = solve_mega.solve_mega_plain(*ins, pass1)
+        done = p1[7].clone()
+        done[::7] = 0.0
+        resume = (done, p1[3], p1[6], p1[5])
+        ins = ins[:5] + (p1[1],)
+    k = solve_mega.solve_mega_cuda(*ins, cfg, resume=resume)
+    p = solve_mega.solve_mega_plain(*ins, cfg, resume=resume)
+    torch.cuda.synchronize()
+    g = _gates(k, p, 48)
+    assert g["ok"], g
+    if case == "tile_exit":
+        # tiles stopped with lanes not done, as on the plain side
+        assert 0.0 < float((k[7] < 0.5).float().mean()) < 0.03
+    else:
+        was_done = resume[0] > 0.5
+        assert bool((k[4][was_done] == 0).all())
+
+
+def test_lockstep_loop_equals_per_thread_loop(dev):
+    """The per-block loop at done_frac = 1 (`lockstep=True`) runs every
+    lane as the per-thread loop does: the same outputs, bit for bit."""
+    z0s, coeffs = _scen(dev, 1024, seed=7)
+    ins = lane_inputs(z0s, coeffs, MPCParams().astype(torch.float32, dev),
+                      LONG)
+    before = solve_mega.launches
+    lock = solve_mega.solve_mega_cuda(*ins, LONG, lockstep=True)
+    thread = solve_mega.solve_mega_cuda(*ins, LONG)
+    torch.cuda.synchronize()
+    assert solve_mega.launches == before + 2
+    for a, b in zip(lock, thread):
+        assert torch.equal(a, b)
+
+
+def test_long_horizon_compact_engaged(dev):
+    """batch_solve_lane at N = 48 on the card runs the compact schedule:
+    observed engaged (two kernel launches, a 1024-lane tail), converged,
+    and at the gates against the plain compact schedule."""
+    B = 16384
+    z0s, coeffs = _scen(dev, B, seed=6)
+    p = MPCParams().astype(torch.float32, dev)
+    before = (solve_mega.launches, solve_mega.passes, solve_mega.tail_lanes)
+    res = batch_solve_lane(z0s, coeffs, p, LONG)
+    torch.cuda.synchronize()
+    assert (solve_mega.launches - before[0], solve_mega.passes - before[1],
+            solve_mega.tail_lanes - before[2]) == (2, 2, 1024)
+    assert float(res.converged.float().mean()) >= 0.99
+    ins = lane_inputs(z0s, coeffs, p, LONG)
+    plain = solve_mega.solve_mega_scheduled(*ins, LONG, plain=True)
+    g = parity_gates(res.us.cpu(), res.cost.cpu(), res.converged.cpu(),
+                     res.n_iters.cpu(), plain[1].permute(2, 0, 1).cpu(),
+                     plain[2].cpu(), plain[3].cpu(), plain[4].cpu(), 48)
+    assert g["ok"], g

@@ -1,6 +1,7 @@
 """solve_mega_plain (the plain PyTorch version of the solve kernel) against
 the JAX package's megakernel run in Pallas interpret mode, on the same
-numpy inputs; and the dispatch contract of the kernel wrapper."""
+numpy inputs; and the dispatch contract of the kernel wrapper. Resume,
+the per-tile exit and the schedules are held in test_torch_schedule.py."""
 
 import dataclasses
 
@@ -112,20 +113,42 @@ def test_dispatch_sends_cpu_tensors_to_plain_without_launching():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(n_steps=40),                                    # auto -> compact
-    dict(n_steps=12, schedule="compact"),
-    dict(n_steps=12, schedule="sorted", max_sqp_iters=6),
-], ids=["auto_n40", "compact", "sorted"])
-def test_unported_schedules_raise(kw):
-    cfg = SolverConfig(**kw)
-    ins = _cpu_inputs(cfg.n_steps)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve_mega.solve_mega_scheduled(*ins, cfg)
+def test_lockstep_selects_the_per_tile_variant():
+    """`lockstep` asks for the per-tile loop at done_frac = 1 (the fifth
+    template flag) and leaves the exit count at the whole tile."""
+    kn = solve_mega.resolve_knobs(SolverConfig(n_steps=8), torch.float32)
+    lock = dataclasses.replace(kn, lockstep=True)
+    assert (kn.tile_exit, lock.tile_exit) == (False, True)
+    assert lock.variant == kn.variant[:4] + (True,)
+    assert lock.n_done_needed == kn.n_done_needed == solve_mega.TILE
 
 
-@pytest.mark.parametrize("kw", [dict(done_frac=0.9), dict(model="bicycle")],
-                         ids=["done_frac", "bicycle"])
+def test_parity_gates_lanes_limit_the_numerics_only():
+    """`lanes` drops lanes from the |du| and d-cost comparison; the
+    fraction gates still count every lane."""
+    n = 1024
+    rng = np.random.default_rng(0)
+    us = rng.normal(size=(n, 7, 2))
+    cost = rng.uniform(10.0, 20.0, n)
+    conv = np.ones(n)
+    iters = np.full(n, 4.0)
+    us_b = us.copy()
+    us_b[3] += 0.5                       # one lane off, converged alike
+    conv_b = conv.copy()
+    conv_b[0] = 0.0                      # one lane converged on one side
+    off = parity_gates(us, cost, conv, iters, us_b, cost, conv_b, iters, 12)
+    keep = np.ones(n, bool)
+    keep[3] = False
+    g = parity_gates(us, cost, conv, iters, us_b, cost, conv_b, iters, 12,
+                     lanes=keep)
+    assert not off["ok"] and off["max_du"] == pytest.approx(0.5)
+    assert g["ok"] and g["max_du"] == 0.0
+    assert g["conv_match_frac"] == off["conv_match_frac"] == (n - 1) / n
+    assert g["flip_or_oneside_frac"] == off["flip_or_oneside_frac"] == 1 / n
+    assert g["compared_frac"] == (n - 2) / n
+
+
+@pytest.mark.parametrize("kw", [dict(model="bicycle")], ids=["bicycle"])
 def test_unported_kernel_options_raise(kw):
     cfg = SolverConfig(n_steps=8, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

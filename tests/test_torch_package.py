@@ -31,7 +31,8 @@ def test_no_jax_imports():
     names = {str(p.relative_to(ROOT)) for p in FILES}
     for mod in ("kernels/backward_fused.py", "kernels/forward.py",
                 "kernels/solve_mega.py", "models/costs.py",
-                "solver/batch_lane.py"):
+                "solver/batch_lane.py", "engine/presort.py",
+                "engine/sweep.py"):
         assert f"mpc_ros_tpu_torch/{mod}" in names, mod
     bad = {}
     for path in FILES:
@@ -72,6 +73,14 @@ def test_kernel_sources_ship_with_the_package():
             " *", "*") for p in m.group(1).split(",")]
         assert [ctype[p] for p in params] == list(spec.argtypes), spec.entry
         assert 'extern "C" const char* mpc_cuda_error_string' in src
+    # the kernel's block is the schedules' tile, and the variant's last
+    # flag selects the per-block exit
+    from mpc_ros_tpu_torch.kernels import solve_mega
+
+    src = (csrc / "solve_mega.cu").read_text()
+    assert f"constexpr int kTile = {solve_mega.TILE};" in src
+    assert "-DMEGA_TILE_EXIT=1" in _build.KERNELS["solve_mega"].flags(
+        (4, True, True, True, True))
     # a build's name carries the kernel, the variant and the source hash
     p = _build.lib_path("forward", (8,))
     assert p.name.startswith("forward_8_") and p.parent == _build.BUILD_DIR
