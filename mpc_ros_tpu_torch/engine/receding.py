@@ -6,7 +6,10 @@ one step), applies the first control, and advances each plant one period
 with the same error-state kinematics the solver optimizes. The JAX
 `lax.scan` over cycles is a Python loop here; on CUDA tensors every
 cycle's solve runs on the card through `batch_solve_lane`'s dispatch (one
-launch of the whole-solve kernel under "auto").
+launch of the whole-solve kernel under "auto"). Per-robot Gaussian
+obstacles (`blobs`) join every cycle's solve; the plant steps with the
+configured family's kinematics (`get_model(cfg.model).step`), so bicycle
+fleets serve as diff-drive ones do.
 """
 
 from __future__ import annotations
@@ -34,11 +37,8 @@ def receding_horizon_rollout(z0s: torch.Tensor, coeffs: torch.Tensor, p,
                              blobs=None) -> RecedingTrace:
     """Run `n_cycles` closed-loop control cycles for B robots. z0s (B, 6)
     initial error states; coeffs (B, P) each robot's reference polynomial
-    (robot frame, fixed over the run)."""
-    if blobs is not None:
-        raise NotImplementedError(
-            "receding_horizon_rollout(blobs=...) is not ported yet (ROADMAP "
-            "Queue 2, K1 stage (e))")
+    (robot frame, fixed over the run); `blobs` (a `GaussianObstacles` with
+    (B, K) leaves) each robot's obstacles, in the same frame."""
     B = z0s.shape[0]
     T = cfg.n_controls
     dtype = z0s.dtype
@@ -49,7 +49,7 @@ def receding_horizon_rollout(z0s: torch.Tensor, coeffs: torch.Tensor, p,
     warm = torch.zeros((B, T, 2), dtype=dtype, device=z0s.device)
     rec = []
     for _ in range(n_cycles):
-        res = batch_solve_lane(zs, coeffs, p, cfg, u_init=warm)
+        res = batch_solve_lane(zs, coeffs, p, cfg, u_init=warm, blobs=blobs)
         u0 = res.us[:, 0, :]                        # (B, 2)
         zs_next = mdl.step(zs, u0, coeffs, dt, sign, p)
         # shift warm start

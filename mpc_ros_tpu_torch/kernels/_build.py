@@ -49,19 +49,24 @@ class Kernel:
     flags: Callable[[tuple], list]
 
 
+_MEGA_MACROS = ("TILE_EXIT", "BLOBS", "SETP", "BICYCLE")
+
+
 def _mega_flags(variant) -> list:
-    n_ls, ddp, fast, adaptive, tile_exit = variant
+    n_ls, ddp, fast, adaptive, *flags = variant
     return [f"-DMEGA_NLS={int(n_ls)}", f"-DMEGA_DDP={int(bool(ddp))}",
             f"-DMEGA_FAST={int(bool(fast))}",
-            f"-DMEGA_ADAPT={int(bool(adaptive))}",
-            f"-DMEGA_TILE_EXIT={int(bool(tile_exit))}"]
+            f"-DMEGA_ADAPT={int(bool(adaptive))}"] + [
+        f"-DMEGA_{m}={int(bool(f))}"
+        for m, f in zip(_MEGA_MACROS, flags, strict=True)]
 
 
 KERNELS = {
-    # variant (n_ls, ddp, fast trig, adaptive weight scale, tile exit)
+    # variant (n_ls, ddp, fast trig, adaptive weight scale, tile exit,
+    # blobs, per-knot setpoints, bicycle)
     "solve_mega": Kernel(
         "solve_mega.cu", "mpc_solve_mega_f32",
-        (_P,) * 20 + (_I,) * 5 + (_F,) * 7 + (_I,) * 5 + (_P,),
+        (_P,) * 25 + (_I,) * 6 + (_F,) * 7 + (_I,) * 8 + (_P,),
         _mega_flags),
     # variant () — one instantiation
     "backward_fused": Kernel(

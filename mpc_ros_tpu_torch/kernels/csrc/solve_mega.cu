@@ -22,6 +22,25 @@
 // `has_resume` does; the schedules (solve_mega.py) run the sorted and
 // compact two-pass solves with it.
 //
+// Three more template flags carry the TPU kernel's remaining static
+// specializations. BLOBS adds Gaussian obstacles, sum_k w exp(-|d|^2 g),
+// to every knot's cost, and their gradient and Gauss-Newton curvature
+// (with the concave -2 g v I part on lanes past the DDP gate) to the
+// backward's stage and terminal expansions; the number of blobs is a
+// runtime count and the lane-major (K, B) parameters are read from global
+// memory where they are used (coalesced, L1-resident), not held in
+// registers. SETP reads knot t's (ref_cte, ref_etheta, ref_vel) from a
+// (T+1, 3, B) profile instead of the per-lane scalars. BICYCLE advances
+// the heading by v delta dt / lf: A[2,3] = A[5,3] = delta dt / lf, B rows
+// 2 and 5 scale by v / lf, gated DDP adds the (v, delta) cross term to
+// Qus[0,3], and fast trig runs its Taylor series on the half angle and
+// composes by the double-angle step (the increment has no configured
+// bound). Each option's code sits in `if constexpr` blocks beside the
+// statements it replaces, and its arguments at the end of Args, so with
+// the three flags off a variant compiles to what it did without them
+// (NVPTX's choice of which a*b+c to fuse depends on the instruction order
+// around it, and moving the shared code changes the rounding).
+//
 // Layout. Every array is batch-minor, [...][lane], so a warp's 32 loads
 // and stores of one row are consecutive addresses. The trajectory lives in
 // device memory (wrapper-allocated scratch): traj_s (2, T+1, 6, B) and
@@ -41,8 +60,9 @@
 // per iteration). The batch-minor layout keeps that traffic coalesced.
 //
 // Numerics follow the reference kernel: read_s selects (never multiplies)
-// the zero previous control at t = 0; trig "exact" is sinf/cosf; the QP's
-// three reciprocals are IEEE divisions (no --use_fast_math). nvcc
+// the zero previous control at t = 0; trig "exact" is sinf/cosf; the
+// blobs' exponentials are expf; the QP's three reciprocals are IEEE
+// divisions (no --use_fast_math). nvcc
 // contracts a*b+c into FMAs, so the kernel agrees with its plain version
 // to solver tolerance, not bit for bit.
 
@@ -85,6 +105,9 @@ struct Args {
   float* Ks;          // (T, 2, 8, B)
   int P, B, T, max_iters, n_done_needed;
   float sign, tol_grad, tol_cost_eff, mu_min, mu_max, mu_factor, ddp_gate;
+  const float* setp;  // (T+1, 3, B) per-knot setpoints (SETP)
+  const float *bx, *by, *bg, *bw;  // (n_blobs, B) each (BLOBS)
+  int n_blobs;
 };
 
 // Per-thread view of the batch-minor scratch buffers.
@@ -161,12 +184,86 @@ struct Problem {
   }
 };
 
+// The lane's view of the options' inputs: the setpoint profile (SETP), the
+// blobs (BLOBS) and the bicycle's 1 / lf (BICYCLE).
+struct Extras {
+  const float *setp, *bx, *by, *bg, *bw;
+  int n_blobs;
+  size_t B, lane;
+  float invlf;
+
+  // knot t's (ref_cte, ref_etheta, ref_vel)
+  __device__ void ref(int t, float& rc, float& re, float& rv) const {
+    const float* r = setp + (size_t)(t * 3) * B + lane;
+    rc = r[0];
+    re = r[B];
+    rv = r[2 * B];
+  }
+
+  // sum_k w exp(-|d|^2 g)
+  __device__ float obs_val(float x, float y) const {
+    float tot = 0.0f;
+    for (int k = 0; k < n_blobs; ++k) {
+      const size_t i = (size_t)k * B + lane;
+      const float dx = x - bx[i];
+      const float dy = y - by[i];
+      tot = tot + bw[i] * expf(-(dx * dx + dy * dy) * bg[i]);
+    }
+    return tot;
+  }
+
+  // gradient and Gauss-Newton curvature of the blobs; with GATE the
+  // concave -2 g v I part is added back scaled by the lane's DDP gate
+  template <bool GATE>
+  __device__ void obs_terms(float x, float y, float gate, float& gx,
+                            float& gy, float& hxx, float& hxy,
+                            float& hyy) const {
+    gx = gy = hxx = hxy = hyy = 0.0f;
+    for (int k = 0; k < n_blobs; ++k) {
+      const size_t i = (size_t)k * B + lane;
+      const float dx = x - bx[i];
+      const float dy = y - by[i];
+      const float g = bg[i];
+      const float v = bw[i] * expf(-(dx * dx + dy * dy) * g);
+      const float tg = 2.0f * g;
+      gx = gx - tg * dx * v;
+      gy = gy - tg * dy * v;
+      const float s = tg * tg * v;
+      hxx = hxx + s * dx * dx;
+      hxy = hxy + s * dx * dy;
+      hyy = hyy + s * dy * dy;
+      if (GATE) {
+        hxx = hxx - gate * tg * v;
+        hyy = hyy - gate * tg * v;
+      }
+    }
+  }
+
+  // the bicycle's heading increment v delta dt / lf and its step
+  __device__ void bicycle_step(const Problem& pr, const float (&s)[8],
+                               float u0, float u1, float ct, float st,
+                               float se, float (&sn)[8]) const {
+    const float f0 = polyval(pr.c, pr.P, s[0]);
+    const float dth = s[3] * invlf * u0 * pr.dt;
+    sn[0] = s[0] + s[3] * ct * pr.dt;
+    sn[1] = s[1] + s[3] * st * pr.dt;
+    sn[2] = s[2] + dth;
+    sn[3] = s[3] + u1 * pr.dt;
+    sn[4] = (f0 - s[1]) + pr.sign * s[3] * se * pr.dt;
+    sn[5] = s[5] + dth;
+    sn[6] = u0;
+    sn[7] = u1;
+  }
+};
+
 // Rollout trigonometry. Every rollout starts from the same pinned s0 and
 // theta / etheta advance by the same u0*dt, so etheta_t = theta_t + phi
 // with phi fixed for the whole solve. FAST carries cos/sin(theta) by
 // rotation composition: a 9th/8th-order Taylor increment plus one Newton
-// renormalization, with the constants as the reference's f32 values.
-template <bool FAST>
+// renormalization, with the constants as the reference's f32 values. HALF
+// (the bicycle) runs the series on the half increment and squares the
+// rotation by the double-angle step: accurate through |d| = 2 rad/step.
+template <bool FAST, bool HALF = false>
 struct Trig {
   float cphi, sphi;
   __device__ float se(float ct, float st, float eth) const {
@@ -176,7 +273,27 @@ struct Trig {
     return FAST ? ct * cphi - st * sphi : cosf(eth);
   }
   __device__ void step(float& ct, float& st, float d, float th_next) const {
-    if (FAST) {
+    if constexpr (FAST && HALF) {
+      const float h = d * 0.5f;
+      const float z = h * h;
+      const float sh =
+          h * (1.0f +
+               z * ((float)(-1.0 / 6.0) +
+                    z * ((float)(1.0 / 120.0) +
+                         z * ((float)(-1.0 / 5040.0) +
+                              z * (float)(1.0 / 362880.0)))));
+      const float ch =
+          1.0f + z * (-0.5f + z * ((float)(1.0 / 24.0) +
+                                   z * ((float)(-1.0 / 720.0) +
+                                        z * (float)(1.0 / 40320.0))));
+      const float cd = ch * ch - sh * sh;
+      const float sd = 2.0f * sh * ch;
+      const float c2 = ct * cd - st * sd;
+      const float s2 = st * cd + ct * sd;
+      const float f = 1.5f - 0.5f * (c2 * c2 + s2 * s2);
+      ct = c2 * f;
+      st = s2 * f;
+    } else if (FAST) {
       const float z = d * d;
       const float sd =
           d * (1.0f +
@@ -216,7 +333,8 @@ __device__ __forceinline__ float feedback(float ub, float alpha, float k,
   return ub + alpha * k + sum;
 }
 
-template <int NLS, bool DDP, bool FAST, bool ADAPT, bool TILE_EXIT>
+template <int NLS, bool DDP, bool FAST, bool ADAPT, bool TILE_EXIT,
+          bool BLOBS, bool SETP, bool BICYCLE>
 __global__ void __launch_bounds__(kTile)
     solve_mega_kernel(const Args a) {
   const int lane_i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -249,6 +367,9 @@ __global__ void __launch_bounds__(kTile)
   pr.rc = par[P_RCTE];
   pr.re = par[P_RETH];
   pr.rv = par[P_RVEL];
+  Extras ex{a.setp, a.bx, a.by, a.bg, a.bw, a.n_blobs, B, (size_t)lane_i,
+            0.0f};
+  if constexpr (BICYCLE) ex.invlf = 1.0f / par[P_LF];
   const float lb0 = a.lb[lane_i], lb1 = a.lb[B + lane_i];
   const float ub0 = a.ub[lane_i], ub1 = a.ub[B + lane_i];
 
@@ -281,7 +402,7 @@ __global__ void __launch_bounds__(kTile)
   s0[7] = 0.0f;
   const float ct00 = cosf(s0[2]);
   const float st00 = sinf(s0[2]);
-  Trig<FAST> trig{1.0f, 0.0f};
+  Trig<FAST, BICYCLE> trig{1.0f, 0.0f};
   if (FAST) {
     const float phi = s0[5] - s0[2];
     trig.cphi = cosf(phi);
@@ -303,21 +424,35 @@ __global__ void __launch_bounds__(kTile)
       *L.u(0, t, 0) = u0;
       *L.u(0, t, 1) = u1;
       const float rate = t >= 1 ? 1.0f : 0.0f;
-      acc = acc + pr.stage_cost(s, u0, u1, rate);
+      if constexpr (SETP) ex.ref(t, pr.rc, pr.re, pr.rv);
+      if constexpr (BLOBS)
+        acc = acc + (pr.stage_cost(s, u0, u1, rate) + ex.obs_val(s[0], s[1]));
+      else
+        acc = acc + pr.stage_cost(s, u0, u1, rate);
       const float se = trig.se(ct, st, s[5]);
       *L.g(t, 0) = ct;
       *L.g(t, 1) = st;
       *L.g(t, 2) = se;
       *L.g(t, 3) = trig.ce(ct, st, s[5]);
       float sn[8];
-      pr.dyn_step(s, u0, u1, ct, st, se, sn);
+      if constexpr (BICYCLE)
+        ex.bicycle_step(pr, s, u0, u1, ct, st, se, sn);
+      else
+        pr.dyn_step(s, u0, u1, ct, st, se, sn);
 #pragma unroll
       for (int r = 0; r < 6; ++r) *L.s(0, t + 1, r) = sn[r];
-      trig.step(ct, st, u0 * dt, sn[2]);
+      if constexpr (BICYCLE)
+        trig.step(ct, st, s[3] * ex.invlf * u0 * dt, sn[2]);
+      else
+        trig.step(ct, st, u0 * dt, sn[2]);
 #pragma unroll
       for (int r = 0; r < 8; ++r) s[r] = sn[r];
     }
-    cost = acc + pr.term_cost(s);
+    if constexpr (SETP) ex.ref(T, pr.rc, pr.re, pr.rv);
+    if constexpr (BLOBS)
+      cost = acc + (pr.term_cost(s) + ex.obs_val(s[0], s[1]));
+    else
+      cost = acc + pr.term_cost(s);
   }
 
   // ---------------- SQP loop -------------------------------------------
@@ -355,11 +490,17 @@ __global__ void __launch_bounds__(kTile)
 #pragma unroll
         for (int j = 0; j < 8; ++j) V[i][j] = 0.0f;
       }
+      if constexpr (SETP) ex.ref(T, pr.rc, pr.re, pr.rv);
       Vs[3] = wv2 * (sT[3] - pr.rv);
       Vs[4] = wc2 * (sT[4] - pr.rc);
       Vs[5] = we2 * (sT[5] - pr.re);
       V[3][3] = wv2;
       V[5][5] = we2;
+      if constexpr (BLOBS) {
+        ex.template obs_terms<DDP>(sT[0], sT[1], g_ddp, Vs[0], Vs[1],
+                                   V[0][0], V[0][1], V[1][1]);
+        V[1][0] = V[0][1];
+      }
     }
     float dv1 = 0.0f, dv2 = 0.0f, pg = 0.0f;
     for (int t = T - 1; t >= 0; --t) {
@@ -378,7 +519,19 @@ __global__ void __launch_bounds__(kTile)
       const float a40 = fp;
       const float a43 = sign * se * dt;
       const float a45 = sign * v * ce * dt;
-      const float b20 = dt;
+      // bicycle heading rows: A[2,3] = A[5,3] = delta dt / lf and
+      // B[2,0] = B[5,0] = v dt / lf (0 and dt for the diff drive)
+      float a23 = 0.0f;
+      float b20 = dt;
+      if constexpr (BICYCLE) {
+        a23 = ut0 * ex.invlf * dt;
+        b20 = v * ex.invlf * dt;
+      }
+      if constexpr (SETP) ex.ref(t, pr.rc, pr.re, pr.rv);
+      float ogx = 0.0f, ogy = 0.0f, ohxx = 0.0f, ohxy = 0.0f, ohyy = 0.0f;
+      if constexpr (BLOBS)
+        ex.template obs_terms<DDP>(s_t[0], s_t[1], g_ddp, ogx, ogy, ohxx,
+                                   ohxy, ohyy);
 
       const float wdw2 = 2.0f * rate * pr.wdang;
       const float wda2 = 2.0f * rate * pr.wdacc;
@@ -390,9 +543,18 @@ __global__ void __launch_bounds__(kTile)
       float Qs[8];
       Qs[0] = Vs[0] + a40 * Vs[4];
       Qs[1] = Vs[1] - Vs[4];
+      if constexpr (BLOBS) {
+        Qs[0] = ogx + Qs[0];
+        Qs[1] = ogy + Qs[1];
+      }
       Qs[2] = a02 * Vs[0] + a12 * Vs[1] + Vs[2];
-      Qs[3] = wv2 * (v - pr.rv) +
-              (a03 * Vs[0] + a13 * Vs[1] + Vs[3] + a43 * Vs[4]);
+      if constexpr (BICYCLE)
+        Qs[3] = wv2 * (v - pr.rv) + (a03 * Vs[0] + a13 * Vs[1] +
+                                     (Vs[3] + a23 * (Vs[2] + Vs[5])) +
+                                     a43 * Vs[4]);
+      else
+        Qs[3] = wv2 * (v - pr.rv) +
+                (a03 * Vs[0] + a13 * Vs[1] + Vs[3] + a43 * Vs[4]);
       Qs[4] = wc2 * (s_t[4] - pr.rc);
       Qs[5] = we2 * (eth - pr.re) + (a45 * Vs[4] + Vs[5]);
       Qs[6] = -wdw2 * du0;
@@ -409,8 +571,12 @@ __global__ void __launch_bounds__(kTile)
         va[1][i] = V[i][1];
         va[2][i] = a02 * V[i][0] + a12 * V[i][1] + V[i][2];
         va[3][i] = a03 * V[i][0] + a13 * V[i][1] + V[i][3];
+        if constexpr (BICYCLE)
+          va[3][i] = va[3][i] + a23 * (V[i][2] + V[i][5]);
         va[5][i] = V[i][5];
       }
+      // row 4's (4,2) and (4,5) entries are structurally zero, so the
+      // bicycle's a23 term leaves va[3][4] as it is
       va[0][4] = a40 * wc2;
       va[1][4] = -wc2;
       va[3][4] = a43 * wc2;
@@ -426,7 +592,10 @@ __global__ void __launch_bounds__(kTile)
           case 2: return a02 * y[0] + a12 * y[1] + y[2];
           case 3: {
             const float e = a03 * y[0] + a13 * y[1] + y[3];
-            return h4 ? e + a43 * y[4] : e;
+            if constexpr (BICYCLE)
+              return (h4 ? e + a43 * y[4] : e) + a23 * (y[2] + y[5]);
+            else
+              return h4 ? e + a43 * y[4] : e;
           }
           default: return h4 ? a45 * y[4] + y[5] : y[5];  // i == 5
         }
@@ -456,6 +625,9 @@ __global__ void __launch_bounds__(kTile)
       }
       qus0[6] = -wdw2;
       qus1[7] = -wda2;
+      // theta rows 2/5 under DDP: d2(v delta dt / lf) / dv d delta
+      if constexpr (DDP && BICYCLE)
+        qus0[3] = qus0[3] + (Vs[2] + Vs[5]) * (ex.invlf * dt) * g_ddp;
 
       // Quu = B' V B + l_uu, symmetrized
       float VB0[8], VB1[8];
@@ -521,6 +693,11 @@ __global__ void __launch_bounds__(kTile)
             if (i == 5) q = q + we2;
             if (i == 6) { q = wdw2; has_q = true; }
             if (i == 7) { q = wda2; has_q = true; }
+          }
+          if constexpr (BLOBS) {
+            if (i == 0 && j == 0) q = q + ohxx;
+            if (i == 0 && j == 1) q = q + ohxy;
+            if (i == 1 && j == 1) q = q + ohyy;
           }
           if (DDP) {
             if (i == 0 && j == 0) q = q + d00;
@@ -593,6 +770,7 @@ __global__ void __launch_bounds__(kTile)
         Km1[j] = *L.K(t, 1, j);
       }
       const float rate = t >= 1 ? 1.0f : 0.0f;
+      if constexpr (SETP) ex.ref(t, pr.rc, pr.re, pr.rv);
 #pragma unroll
       for (int al = 0; al < NLS; ++al) {
         const float alpha = 1.0f / (float)(1 << al);
@@ -601,20 +779,35 @@ __global__ void __launch_bounds__(kTile)
         for (int j = 0; j < 8; ++j) ds[j] = S[al][j] - s_b[j];
         const float u0 = clampf(feedback(ub_0, alpha, k0, Km0, ds), lb0, ub0);
         const float u1 = clampf(feedback(ub_1, alpha, k1, Km1, ds), lb1, ub1);
-        accs[al] = accs[al] + pr.stage_cost(S[al], u0, u1, rate);
+        if constexpr (BLOBS)
+          accs[al] = accs[al] + (pr.stage_cost(S[al], u0, u1, rate) +
+                                 ex.obs_val(S[al][0], S[al][1]));
+        else
+          accs[al] = accs[al] + pr.stage_cost(S[al], u0, u1, rate);
         const float se = trig.se(cts[al], sts[al], S[al][5]);
         float sn[8];
-        pr.dyn_step(S[al], u0, u1, cts[al], sts[al], se, sn);
-        trig.step(cts[al], sts[al], u0 * dt, sn[2]);
+        if constexpr (BICYCLE) {
+          ex.bicycle_step(pr, S[al], u0, u1, cts[al], sts[al], se, sn);
+          trig.step(cts[al], sts[al], S[al][3] * ex.invlf * u0 * dt, sn[2]);
+        } else {
+          pr.dyn_step(S[al], u0, u1, cts[al], sts[al], se, sn);
+          trig.step(cts[al], sts[al], u0 * dt, sn[2]);
+        }
 #pragma unroll
         for (int r = 0; r < 8; ++r) S[al][r] = sn[r];
       }
     }
     // the first (largest) alpha that lowers the cost wins
     float picked = 0.0f, alpha_sel = 0.0f, cost_sel = cost;
+    if constexpr (SETP) ex.ref(T, pr.rc, pr.re, pr.rv);
 #pragma unroll
     for (int al = 0; al < NLS; ++al) {
-      const float cost_a = accs[al] + pr.term_cost(S[al]);
+      float cost_a;
+      if constexpr (BLOBS)
+        cost_a = accs[al] + (pr.term_cost(S[al]) +
+                             ex.obs_val(S[al][0], S[al][1]));
+      else
+        cost_a = accs[al] + pr.term_cost(S[al]);
       const float improved = cost_a < cost ? 1.0f : 0.0f;
       const float take = improved * (1.0f - fminf(picked, 1.0f));
       picked = picked + take;
@@ -665,13 +858,19 @@ __global__ void __launch_bounds__(kTile)
           *gp = upd * gn[r] + keep * *gp;
         }
         float sn[8];
-        pr.dyn_step(sa, u0, u1, ct, st, se, sn);
+        if constexpr (BICYCLE)
+          ex.bicycle_step(pr, sa, u0, u1, ct, st, se, sn);
+        else
+          pr.dyn_step(sa, u0, u1, ct, st, se, sn);
         *L.u(nxt, t, 0) = upd * u0 + keep * ub_0;
         *L.u(nxt, t, 1) = upd * u1 + keep * ub_1;
 #pragma unroll
         for (int r = 0; r < 6; ++r)
           *L.s(nxt, t + 1, r) = upd * sn[r] + keep * *L.s(cur, t + 1, r);
-        trig.step(ct, st, u0 * dt, sn[2]);
+        if constexpr (BICYCLE)
+          trig.step(ct, st, sa[3] * ex.invlf * u0 * dt, sn[2]);
+        else
+          trig.step(ct, st, u0 * dt, sn[2]);
 #pragma unroll
         for (int r = 0; r < 8; ++r) sa[r] = sn[r];
       }
@@ -747,27 +946,47 @@ __global__ void __launch_bounds__(kTile)
 #ifndef MEGA_TILE_EXIT
 #define MEGA_TILE_EXIT 0
 #endif
+#ifndef MEGA_BLOBS
+#define MEGA_BLOBS 0
+#endif
+#ifndef MEGA_SETP
+#define MEGA_SETP 0
+#endif
+#ifndef MEGA_BICYCLE
+#define MEGA_BICYCLE 0
+#endif
 
 // Error codes for a request of a variant this library was not built for,
-// and for a per-tile exit over a batch that is not whole tiles.
+// for a per-tile exit over a batch that is not whole tiles, and for a
+// variant's input that is missing.
 #define MEGA_ERR_VARIANT 100000
 #define MEGA_ERR_TILE 100001
+#define MEGA_ERR_INPUT 100002
 
 extern "C" int mpc_solve_mega_f32(
     const void* z0, const void* cf, const void* par, const void* lb,
-    const void* ub, const void* u0, const void* resume, void* ss, void* us,
-    void* cost, void* conv, void* iters, void* gnorm, void* mu, void* done,
-    void* traj_s, void* traj_u, void* traj_g, void* ks, void* Ks, int P,
-    int B, int T, int max_iters, int n_done_needed, float sign,
-    float tol_grad, float tol_cost_eff, float mu_min, float mu_max,
-    float mu_factor, float ddp_gate, int n_ls, int ddp, int fast,
-    int adaptive, int tile_exit, void* stream) {
+    const void* ub, const void* u0, const void* resume, const void* setp,
+    const void* bx, const void* by, const void* bg, const void* bw,
+    void* ss, void* us, void* cost, void* conv, void* iters, void* gnorm,
+    void* mu, void* done, void* traj_s, void* traj_u, void* traj_g,
+    void* ks, void* Ks, int P, int B, int T, int max_iters,
+    int n_done_needed, int n_blobs, float sign, float tol_grad,
+    float tol_cost_eff, float mu_min, float mu_max, float mu_factor,
+    float ddp_gate, int n_ls, int ddp, int fast, int adaptive,
+    int tile_exit, int blobs, int setp_on, int bicycle, void* stream) {
   if (n_ls != MEGA_NLS || (ddp != 0) != (MEGA_DDP != 0) ||
       (fast != 0) != (MEGA_FAST != 0) ||
       (adaptive != 0) != (MEGA_ADAPT != 0) ||
-      (tile_exit != 0) != (MEGA_TILE_EXIT != 0))
+      (tile_exit != 0) != (MEGA_TILE_EXIT != 0) ||
+      (blobs != 0) != (MEGA_BLOBS != 0) ||
+      (setp_on != 0) != (MEGA_SETP != 0) ||
+      (bicycle != 0) != (MEGA_BICYCLE != 0))
     return MEGA_ERR_VARIANT;
   if (MEGA_TILE_EXIT != 0 && B % mega::kTile != 0) return MEGA_ERR_TILE;
+  if (MEGA_BLOBS != 0 && (n_blobs < 1 || bx == nullptr || by == nullptr ||
+                          bg == nullptr || bw == nullptr))
+    return MEGA_ERR_INPUT;
+  if (MEGA_SETP != 0 && setp == nullptr) return MEGA_ERR_INPUT;
   mega::Args a;
   a.z0 = static_cast<const float*>(z0);
   a.cf = static_cast<const float*>(cf);
@@ -801,10 +1020,18 @@ extern "C" int mpc_solve_mega_f32(
   a.mu_max = mu_max;
   a.mu_factor = mu_factor;
   a.ddp_gate = ddp_gate;
+  a.setp = static_cast<const float*>(setp);
+  a.bx = static_cast<const float*>(bx);
+  a.by = static_cast<const float*>(by);
+  a.bg = static_cast<const float*>(bg);
+  a.bw = static_cast<const float*>(bw);
+  a.n_blobs = n_blobs;
   const int threads = mega::kTile;
   const int blocks = (B + threads - 1) / threads;
   mega::solve_mega_kernel<MEGA_NLS, MEGA_DDP != 0, MEGA_FAST != 0,
-                          MEGA_ADAPT != 0, MEGA_TILE_EXIT != 0>
+                          MEGA_ADAPT != 0, MEGA_TILE_EXIT != 0,
+                          MEGA_BLOBS != 0, MEGA_SETP != 0,
+                          MEGA_BICYCLE != 0>
       <<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -812,8 +1039,11 @@ extern "C" int mpc_solve_mega_f32(
 extern "C" const char* mpc_cuda_error_string(int err) {
   if (err == MEGA_ERR_VARIANT)
     return "library built for another (n_ls, ddp, fast, adaptive, "
-           "tile_exit) variant";
+           "tile_exit, blobs, setp, bicycle) variant";
   if (err == MEGA_ERR_TILE)
     return "done_frac < 1 exits per 128-lane tile and needs B % 128 == 0";
+  if (err == MEGA_ERR_INPUT)
+    return "the blobs variant needs n_blobs >= 1 and its four arrays, the "
+           "setp variant its profile";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -11,15 +11,18 @@ backward scan with gated DDP terms and an exact 2-D box QP per stage,
 per-lane mu / convergence / stall bookkeeping.
 
 Inputs are batch-last: zT (6, B), cT (P, B), params (12, B) from
-`pack.pack_params`, lb/ub (2, B), u0 (T, 2, B). Outputs are
+`pack.pack_params`, lb/ub (2, B), u0 (T, 2, B); optionally the resume
+state (done, conv, mu, gnorm), each (B,), the blobs (cx, cy, gamma, w),
+each (K, B) (`GaussianObstacles.lane()`), and per-knot setpoints `refs`
+(T+1, 3, B) of (ref_cte, ref_etheta, ref_vel). Outputs are
 (ss (T+1, 8, B), us (T, 2, B), cost, conv, iters, gnorm, mu, done), each
 of the last six (B,).
 
-The port covers the diff-drive solve with ddp on or off, fast or exact
-trig, `scale_adaptive` on or off, per-lane parameters, resume state and
-the per-tile exit of `done_frac < 1`; `solve_mega_scheduled` runs it under
-the single, sorted and compact schedules. Per-knot setpoints, blobs and
-the bicycle family are ROADMAP Queue 2, K1 stages (e)-(g).
+The port covers the whole kernel: the diff-drive and bicycle families,
+ddp on or off, fast or exact trig, `scale_adaptive` on or off, per-lane
+parameters, resume state, the per-tile exit of `done_frac < 1`, Gaussian
+blobs and per-knot setpoints; `solve_mega_scheduled` runs it under the
+single, sorted and compact schedules.
 
 `solve_mega` sends CPU tensors to `solve_mega_plain` and CUDA tensors to
 `solve_mega_cuda`, which launches the kernel or raises.
@@ -34,8 +37,8 @@ import math
 import torch
 
 from . import tiles
-from .pack import (N_PAR, P_DT, P_RCTE, P_RETH, P_RVEL, P_WACC, P_WANG,
-                   P_WCTE, P_WDACC, P_WDANG, P_WETH, P_WVEL)
+from .pack import (N_PAR, P_DT, P_LF, P_RCTE, P_RETH, P_RVEL, P_WACC,
+                   P_WANG, P_WCTE, P_WDACC, P_WDANG, P_WETH, P_WVEL)
 
 _N = 8
 _M = 2
@@ -62,7 +65,7 @@ passes = 0
 tail_lanes = 0
 last_need = None
 
-_PENDING = "ROADMAP Queue 2, K1 stages (e)-(g): blobs, refs, bicycle"
+MODELS = ("diff_drive", "bicycle")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +88,11 @@ class Knobs:
     fast_trig: bool
     adaptive: bool
     n_done_needed: int
+    # Gaussian blobs per lane (0 = none), per-knot setpoints, and the
+    # vehicle family ("diff_drive" or "bicycle")
+    n_blobs: int = 0
+    has_setp: bool = False
+    model: str = "diff_drive"
     # the per-tile loop even at n_done_needed = TILE, where it computes
     # what the per-lane exit does (to time the one against the other)
     lockstep: bool = False
@@ -99,16 +107,21 @@ class Knobs:
     @property
     def variant(self) -> tuple:
         """The kernel's template arguments (n_ls, ddp, fast, adaptive,
-        tile_exit)."""
+        tile_exit, blobs, setp, bicycle); the number of blobs is a runtime
+        argument."""
         return (self.n_ls, self.ddp, self.fast_trig, self.adaptive,
-                self.tile_exit)
+                self.tile_exit, self.n_blobs > 0, self.has_setp,
+                self.model == "bicycle")
 
 
-def resolve_knobs(cfg, dtype) -> Knobs:
-    if cfg.model != "diff_drive":
-        raise NotImplementedError(
-            f"solve_mega covers model='diff_drive' only, got "
-            f"{cfg.model!r} ({_PENDING})")
+def resolve_knobs(cfg, dtype, n_blobs: int = 0,
+                  has_setp: bool = False) -> Knobs:
+    """The knobs of one solve: with blobs (`n_blobs` > 0) the mu floor and
+    the DDP gate resolve with obstacles, as `solve_pallas` resolves
+    them."""
+    if cfg.model not in MODELS:
+        raise ValueError(f"solve_mega covers the families {MODELS}, got "
+                         f"{cfg.model!r}")
     if cfg.trig not in ("fast", "exact"):
         raise ValueError(f"trig must be 'fast' or 'exact', got {cfg.trig!r}")
     return Knobs(
@@ -118,20 +131,33 @@ def resolve_knobs(cfg, dtype) -> Knobs:
         sign=float(cfg.cte_vsin_sign),
         tol_grad=float(cfg.tol_grad_for(dtype)),
         tol_cost_eff=max(cfg.tol_cost, 10.0 * float(torch.finfo(dtype).eps)),
-        mu_min=float(cfg.mu_init_for(dtype, False)),
+        mu_min=float(cfg.mu_init_for(dtype, n_blobs > 0)),
         mu_max=float(cfg.mu_max),
         mu_factor=float(cfg.mu_factor),
         ddp=bool(cfg.ddp_for(dtype)),
-        ddp_gate=float(cfg.gate_for(False, dtype)),
+        ddp_gate=float(cfg.gate_for(n_blobs > 0, dtype)),
         fast_trig=cfg.trig == "fast",
         adaptive=bool(cfg.scale_adaptive),
         # a tile runs while fewer of its lanes are done (solve_pallas)
         n_done_needed=(TILE if cfg.done_frac >= 1.0 else
                        min(TILE, int(math.ceil(cfg.done_frac * TILE)))),
+        n_blobs=int(n_blobs),
+        has_setp=bool(has_setp),
+        model=cfg.model,
     )
 
 
-def _check_inputs(zT, cT, pp, lb, ub, u0, kn, resume=None):
+def _knobs_for(cfg, dtype, blobs, refs) -> Knobs:
+    if blobs is not None and len(blobs) != 4:
+        raise ValueError(f"blobs is (cx, cy, gamma, w), got {len(blobs)} "
+                         "arrays")
+    return resolve_knobs(cfg, dtype,
+                         n_blobs=0 if blobs is None else blobs[0].shape[0],
+                         has_setp=refs is not None)
+
+
+def _check_inputs(zT, cT, pp, lb, ub, u0, kn, resume=None, blobs=None,
+                  refs=None):
     B = zT.shape[-1]
     want = {"zT": (zT, (6, B)), "params": (pp, (N_PAR, B)),
             "lb": (lb, (_M, B)), "ub": (ub, (_M, B)),
@@ -141,6 +167,13 @@ def _check_inputs(zT, cT, pp, lb, ub, u0, kn, resume=None):
             raise ValueError("resume is (done, conv, mu, gnorm), got "
                              f"{len(resume)} arrays")
         want.update({f"resume[{i}]": (r, (B,)) for i, r in enumerate(resume)})
+    if blobs is not None:
+        if kn.n_blobs < 1:
+            raise ValueError("blobs needs at least one blob per lane")
+        want.update({f"blobs[{i}]": (b, (kn.n_blobs, B))
+                     for i, b in enumerate(blobs)})
+    if refs is not None:
+        want["refs"] = (refs, (kn.T + 1, 3, B))
     if kn.tile_exit and B % TILE:
         raise ValueError(f"the per-tile loop (done_frac < 1, or lockstep) "
                          f"runs {TILE}-lane tiles and needs B % {TILE} == 0, "
@@ -157,7 +190,8 @@ def _check_inputs(zT, cT, pp, lb, ub, u0, kn, resume=None):
 # --------------------------------------------------------------- plain
 
 
-def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None):
+def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None, blobs=None,
+                     refs=None):
     """The plain PyTorch version of the kernel: `_kernel` of
     `solve_pallas.py` transcribed onto (B,)-vectors — the same
     structured-sparsity products in the same operation order, and an `act`
@@ -169,11 +203,18 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None):
     small-step counter and iteration count restart at 0. With done_frac < 1
     the batch runs in tiles of TILE lanes, as the kernel's blocks do: a
     tile stops once ceil(done_frac * TILE) of its lanes are done, and its
-    lanes are masked out of every update from then on."""
+    lanes are masked out of every update from then on.
+
+    `blobs` (cx, cy, gamma, w), each (K, B): the blob penalty joins every
+    knot's cost, and its gradient and Gauss-Newton curvature (with the
+    concave part on lanes past the DDP gate) the backward's stage and
+    terminal expansions. `refs` (T+1, 3, B): knot t's setpoints replace
+    the scalar (ref_cte, ref_etheta, ref_vel) in knot t's cost. With
+    `cfg.model == "bicycle"` the heading advances by v delta dt / lf."""
     dtype = zT.dtype
-    kn = resolve_knobs(cfg, dtype)
+    kn = _knobs_for(cfg, dtype, blobs, refs)
     T = kn.T
-    B = _check_inputs(zT, cT, pp, lb, ub, u0, kn, resume)
+    B = _check_inputs(zT, cT, pp, lb, ub, u0, kn, resume, blobs, refs)
     dev = zT.device
     sign = kn.sign
     n_alpha = kn.n_ls
@@ -203,36 +244,96 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None):
         inv_wscl = 1.0
         mu_lo = torch.full((B,), kn.mu_min, dtype=dtype, device=dev)
         mu_hi = torch.full((B,), kn.mu_max, dtype=dtype, device=dev)
-    rc, re, rv = par[P_RCTE], par[P_RETH], par[P_RVEL]
+    n_blobs = kn.n_blobs
+    bicycle = kn.model == "bicycle"
 
     def sq(a):
         return a * a
 
+    # (e) Gaussian blobs: sum_k w exp(-|d|^2 g) and, for the backward, its
+    # gradient and Gauss-Newton curvature; given the per-lane DDP gate, the
+    # concave -2 g v I part is added back scaled by it
+    if n_blobs:
+        bx, by, bg, bw = blobs
+
+    def obs_val(x, y):
+        tot = zeros
+        for k in range(n_blobs):
+            dx = x - bx[k]
+            dy = y - by[k]
+            tot = tot + bw[k] * torch.exp(-(dx * dx + dy * dy) * bg[k])
+        return tot
+
+    def obs_terms(x, y, gate):
+        gx = gy = hxx = hxy = hyy = zeros
+        for k in range(n_blobs):
+            dx = x - bx[k]
+            dy = y - by[k]
+            g = bg[k]
+            v = bw[k] * torch.exp(-(dx * dx + dy * dy) * g)
+            tg = 2.0 * g
+            gx = gx - tg * dx * v
+            gy = gy - tg * dy * v
+            s_ = tg * tg * v
+            hxx = hxx + s_ * dx * dx
+            hxy = hxy + s_ * dx * dy
+            hyy = hyy + s_ * dy * dy
+            if gate is not None:
+                hxx = hxx - gate * tg * v
+                hyy = hyy - gate * tg * v
+        return gx, gy, hxx, hxy, hyy
+
+    # (f) the setpoints of knot t: the per-knot profile, or the per-lane
+    # scalars
+    if refs is not None:
+        def ref3(t):
+            return refs[t, 0], refs[t, 1], refs[t, 2]
+    else:
+        def ref3(t):
+            return par[P_RCTE], par[P_RETH], par[P_RVEL]
+
+    # (g) the heading increment: omega dt, or v delta dt / lf for the
+    # bicycle, whose heading rows gain a v dependence
+    if bicycle:
+        invlf = 1.0 / par[P_LF]
+
+        def dth_of(v, u0_):
+            return v * invlf * u0_ * dt
+    else:
+        def dth_of(v, u0_):
+            return u0_ * dt
+
     def dyn_step(s, u0_, u1_, ct_, st_, se_):
         x, y, th, v, cte, eth = s[:6]
         f0 = tiles.polyval(cf, x)
-        dth = u0_ * dt
+        dth = dth_of(v, u0_)
         return [x + v * ct_ * dt, y + v * st_ * dt, th + dth,
                 v + u1_ * dt, (f0 - y) + sign * v * se_ * dt, eth + dth,
                 u0_, u1_]
 
-    def stage_cost(s, u0_, u1_, rate):
+    def stage_cost(s, u0_, u1_, rate, t):
         du0 = u0_ - s[6]
         du1 = u1_ - s[7]
-        return (par[P_WCTE] * sq(s[4] - rc) + par[P_WETH] * sq(s[5] - re)
-                + par[P_WVEL] * sq(s[3] - rv) + par[P_WANG] * sq(u0_)
-                + par[P_WACC] * sq(u1_)
-                + rate * (par[P_WDANG] * sq(du0) + par[P_WDACC] * sq(du1)))
+        rc, re, rv = ref3(t)
+        c = (par[P_WCTE] * sq(s[4] - rc) + par[P_WETH] * sq(s[5] - re)
+             + par[P_WVEL] * sq(s[3] - rv) + par[P_WANG] * sq(u0_)
+             + par[P_WACC] * sq(u1_)
+             + rate * (par[P_WDANG] * sq(du0) + par[P_WDACC] * sq(du1)))
+        return c + obs_val(s[0], s[1]) if n_blobs else c
 
     def term_cost(s):
-        return (par[P_WCTE] * sq(s[4] - rc) + par[P_WETH] * sq(s[5] - re)
-                + par[P_WVEL] * sq(s[3] - rv))
+        rc, re, rv = ref3(T)
+        c = (par[P_WCTE] * sq(s[4] - rc) + par[P_WETH] * sq(s[5] - re)
+             + par[P_WVEL] * sq(s[3] - rv))
+        return c + obs_val(s[0], s[1]) if n_blobs else c
 
     # rollout trigonometry: every rollout starts from the same pinned s0,
-    # and theta/etheta advance by the same u0*dt, so etheta_t = theta_t +
-    # phi with phi fixed for the whole solve (fast mode: rotation
+    # and theta/etheta advance by the same increment, so etheta_t =
+    # theta_t + phi with phi fixed for the whole solve (fast mode: rotation
     # composition with a 9th/8th-order Taylor increment + one Newton
-    # renormalization; no transcendentals after the first four)
+    # renormalization; no transcendentals after the first four). The
+    # bicycle's increment has no configured bound: its Taylor runs on the
+    # half angle and composes by the double-angle step
     s0 = [zT[i] for i in range(6)] + [zeros, zeros]
     ct00 = torch.cos(s0[2])
     st00 = torch.sin(s0[2])
@@ -248,11 +349,15 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None):
             return ct * cphi - st * sphi
 
         def step_trig(ct, st, d, s_next):
+            if bicycle:
+                d = d * 0.5
             z = d * d
             sd = d * (1.0 + z * (-1.0 / 6.0 + z * (1.0 / 120.0
                       + z * (-1.0 / 5040.0 + z * (1.0 / 362880.0)))))
             cd = 1.0 + z * (-0.5 + z * (1.0 / 24.0
                       + z * (-1.0 / 720.0 + z * (1.0 / 40320.0))))
+            if bicycle:
+                cd, sd = cd * cd - sd * sd, 2.0 * sd * cd   # double angle
             c2 = ct * cd - st * sd
             s2 = st * cd + ct * sd
             f = 1.5 - 0.5 * (c2 * c2 + s2 * s2)
@@ -290,12 +395,12 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None):
         u0_, u1_ = u0[t, 0], u0[t, 1]
         traj_u[0][t] = (u0_, u1_)
         rate = 1.0 if t >= 1 else 0.0
-        acc = acc + stage_cost(s_a, u0_, u1_, rate)
+        acc = acc + stage_cost(s_a, u0_, u1_, rate, t)
         se = se_of(ct, st, s_a)
         traj_g[t] = (ct, st, se, ce_of(ct, st, s_a))
         s_n = dyn_step(s_a, u0_, u1_, ct, st, se)
         traj_s[0][t + 1] = s_n[:6]
-        ct, st = step_trig(ct, st, u0_ * dt, s_n)
+        ct, st = step_trig(ct, st, dth_of(s_a[3], u0_), s_n)
     cost = acc + term_cost(traj_s[0][T])
 
     # ---- SQP loop ----
@@ -339,11 +444,17 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None):
 
         # ---- backward scan with inline linearization ----
         sT = traj_s[cur][T]
-        Vs = [zeros, zeros, zeros, wv2 * (sT[3] - rv), wc2 * (sT[4] - rc),
-              we2 * (sT[5] - re), zeros, zeros]
-        diagT = [zeros, zeros, zeros, wv2, wc2, we2, zeros, zeros]
+        if n_blobs:
+            ogxT, ogyT, ohxxT, ohxyT, ohyyT = obs_terms(sT[0], sT[1], g_ddp)
+        else:
+            ogxT = ogyT = ohxxT = ohxyT = ohyyT = zeros
+        rcT, reT, rvT = ref3(T)
+        Vs = [ogxT, ogyT, zeros, wv2 * (sT[3] - rvT), wc2 * (sT[4] - rcT),
+              we2 * (sT[5] - reT), zeros, zeros]
+        diagT = [ohxxT, ohyyT, zeros, wv2, wc2, we2, zeros, zeros]
         Vss = [[diagT[i] if i == j else zeros for j in range(_N)]
                for i in range(_N)]
+        Vss[0][1] = Vss[1][0] = ohxyT
         dv1 = dv2 = pg = zeros
         for t in range(T - 1, -1, -1):
             s_t = read_s(cur, t)
@@ -361,19 +472,32 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None):
             a40 = fp
             a43 = sign * se * dt
             a45 = sign * v * ce * dt
-            b20 = dt
+            if bicycle:
+                # the heading rows: A[2,3] = A[5,3] = delta dt / lf, and B
+                # rows 2/5 scale by v / lf (dt for the diff drive)
+                a23 = u_t[0] * invlf * dt
+                b20 = v * invlf * dt
+            else:
+                a23 = None
+                b20 = dt
 
             wdw2 = 2.0 * rate * par[P_WDANG]
             wda2 = 2.0 * rate * par[P_WDACC]
             du0 = u_t[0] - s_t[6]
             du1 = u_t[1] - s_t[7]
-            ls = [zeros, zeros, zeros, wv2 * (v - rv), wc2 * (s_t[4] - rc),
-                  we2 * (eth - re), -wdw2 * du0, -wda2 * du1]
+            if n_blobs:
+                ogx, ogy, ohxx, ohxy, ohyy = obs_terms(s_t[0], s_t[1], g_ddp)
+            else:
+                ogx = ogy = zeros
+            rc_t, re_t, rv_t = ref3(t)
+            ls = [ogx, ogy, zeros, wv2 * (v - rv_t), wc2 * (s_t[4] - rc_t),
+                  we2 * (eth - re_t), -wdw2 * du0, -wda2 * du1]
             lu = [ww2 * u_t[0] + wdw2 * du0, wa2 * u_t[1] + wda2 * du1]
             lss_diag = list(lss_idx) + [wdw2, wda2]
+            y3 = Vs[3] if a23 is None else Vs[3] + a23 * (Vs[2] + Vs[5])
             AtV = [Vs[0] + a40 * Vs[4], Vs[1] - Vs[4],
                    a02 * Vs[0] + a12 * Vs[1] + Vs[2],
-                   a03 * Vs[0] + a13 * Vs[1] + Vs[3] + a43 * Vs[4],
+                   a03 * Vs[0] + a13 * Vs[1] + y3 + a43 * Vs[4],
                    zeros, a45 * Vs[4] + Vs[5], zeros, zeros]
             Qs = [ls[i] + AtV[i] for i in range(_N)]
             Qu = [lu[0] + (b20 * (Vs[2] + Vs[5]) + Vs[6]),
@@ -392,6 +516,10 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None):
             for i in nrow:
                 va2[i] = a02 * Vss[i][0] + a12 * Vss[i][1] + Vss[i][2]
                 va3[i] = a03 * Vss[i][0] + a13 * Vss[i][1] + Vss[i][3]
+                if a23 is not None:
+                    va3[i] = va3[i] + a23 * (Vss[i][2] + Vss[i][5])
+            # row 4's (4,2)/(4,5) entries are structurally zero, so the
+            # bicycle's a23 term drops out of the row-4 invariant too
             va3[4] = a43 * wc2
             va5 = [Vss[i][5] for i in range(_N)]
             va5[4] = a45 * wc2
@@ -408,7 +536,9 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None):
                     return zadd(a02 * y[0], a12 * y[1], y[2])
                 if i == 3:
                     return zadd(a03 * y[0], a13 * y[1], y[3],
-                                None if y4 is None else a43 * y4)
+                                None if y4 is None else a43 * y4,
+                                None if a23 is None
+                                else a23 * (y[2] + y[5]))
                 return zadd(None if y4 is None else a45 * y4, y[5])
 
             dmap = {}
@@ -422,11 +552,15 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None):
                     (5, 5): -sign * dt * v * se * Vs[4] * g_ddp,
                 }
 
+            blob_h = ({(0, 0): ohxx, (1, 1): ohyy, (0, 1): ohxy}
+                      if n_blobs else {})
+
             def qss_entry(i, j):
                 e = atva(i, j) if (i in live and j in live) else None
                 if i == j and lss_diag[i] is not None:
                     e = zadd(e, lss_diag[i])
-                return zadd(e, dmap.get((i, j) if i <= j else (j, i)))
+                key = (i, j) if i <= j else (j, i)
+                return zadd(e, blob_h.get(key), dmap.get(key))
 
             qus0 = {j: zadd(b20 * zadd(va[j][2], va[j][5]), va[j][6])
                     for j in live}
@@ -434,6 +568,10 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None):
             qus0[4] = qus1[4] = None
             qus0[6], qus1[6] = -wdw2, None
             qus0[7], qus1[7] = None, -wda2
+            if kn.ddp and bicycle:
+                # theta rows 2/5: d2(v delta dt / lf) / dv d delta
+                qus0[3] = zadd(qus0[3], (Vs[2] + Vs[5]) * (invlf * dt)
+                               * g_ddp)
             Qus = torch.stack([
                 torch.stack([qus0[j] if qus0[j] is not None else zeros
                              for j in range(_N)]),
@@ -517,10 +655,10 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None):
                 K[1, j] * ds[j] for j in range(_N) if j != 4)
             u0_ = torch.clamp(u0_, lb0, ub0)
             u1_ = torch.clamp(u1_, lb1, ub1)
-            accs = accs + stage_cost(S, u0_, u1_, rate)
+            accs = accs + stage_cost(S, u0_, u1_, rate, t)
             se = se_of(cts, sts, S)
             s_n = dyn_step(S, u0_, u1_, cts, sts, se)
-            cts, sts = step_trig(cts, sts, u0_ * dt, s_n)
+            cts, sts = step_trig(cts, sts, dth_of(S[3], u0_), s_n)
             S = s_n
         costs = accs + term_cost(S)
 
@@ -564,7 +702,7 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None):
                               upd * u1_ + keep * u_b[1])
             traj_s[nxt][t + 1] = [upd * s_n[i] + keep * traj_s[cur][t + 1][i]
                                   for i in range(6)]
-            ct, st = step_trig(ct, st, u0_ * dt, s_n)
+            ct, st = step_trig(ct, st, dth_of(s_a[3], u0_), s_n)
             s_a = s_n
         cost2 = torch.where(upd > 0.5, cost_sel, cost)
 
@@ -606,17 +744,19 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None):
 
 
 def solve_mega_cuda(zT, cT, pp, lb, ub, u0, cfg, resume=None,
-                    lockstep=False):
+                    lockstep=False, blobs=None, refs=None):
     """Launch the hand-written kernel (`csrc/solve_mega.cu`) on CUDA
     float32 tensors; raises on anything else. Allocates every output and
     scratch buffer; launches on the current stream and does not
     synchronize. `lockstep=True` launches the per-block loop of
     `done_frac < 1` whatever `done_frac`; at `done_frac = 1` it computes
     what the per-thread loop does, so the two can be timed against each
-    other."""
+    other. Blobs and setpoints select the kernel's BLOBS and SETP
+    variants (the number of blobs is a runtime argument), the bicycle
+    family its BICYCLE variant."""
     global launches
-    args = (zT, cT, pp, lb, ub, u0) + (() if resume is None else
-                                       tuple(resume))
+    args = ((zT, cT, pp, lb, ub, u0) + tuple(resume or ())
+            + tuple(blobs or ()) + (() if refs is None else (refs,)))
     for a in args:
         if not a.is_cuda:
             raise ValueError("solve_mega_cuda needs CUDA tensors, got one "
@@ -626,10 +766,10 @@ def solve_mega_cuda(zT, cT, pp, lb, ub, u0, cfg, resume=None,
                              f"{a.dtype}")
         if a.device != zT.device:
             raise ValueError("solve_mega_cuda inputs must share a device")
-    kn = dataclasses.replace(resolve_knobs(cfg, torch.float32),
+    kn = dataclasses.replace(_knobs_for(cfg, torch.float32, blobs, refs),
                              lockstep=bool(lockstep))
     T = kn.T
-    B = _check_inputs(zT, cT, pp, lb, ub, u0, kn, resume)
+    B = _check_inputs(zT, cT, pp, lb, ub, u0, kn, resume, blobs, refs)
     P = cT.shape[0]
     if P > 8:
         raise ValueError(f"the kernel takes polynomials up to order 7 "
@@ -640,6 +780,8 @@ def solve_mega_cuda(zT, cT, pp, lb, ub, u0, cfg, resume=None,
     ins = [a.contiguous() for a in args[:6]]
     # (4, B): done, conv, mu, gnorm
     res = None if resume is None else torch.stack(list(resume))
+    opt = [res, None if refs is None else refs.contiguous()] + (
+        [None] * 4 if blobs is None else [b.contiguous() for b in blobs])
     from . import _build
 
     launch = _build.load("solve_mega", kn.variant)
@@ -654,65 +796,76 @@ def solve_mega_cuda(zT, cT, pp, lb, ub, u0, cfg, resume=None,
     scratch = [empty(2, T + 1, 6, B), empty(2, T, _M, B), empty(T, 4, B),
                empty(T, _M, B), empty(T, _M, _N, B)]
     ptr = [ctypes.c_void_p(a.data_ptr()) for a in ins]
-    ptr.append(ctypes.c_void_p(None if res is None else res.data_ptr()))
+    ptr += [ctypes.c_void_p(None if a is None else a.data_ptr())
+            for a in opt]
     ptr += [ctypes.c_void_p(a.data_ptr()) for a in [ss, us] + outs + scratch]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(
             *ptr, ctypes.c_int(P), ctypes.c_int(B), ctypes.c_int(T),
             ctypes.c_int(kn.max_iters), ctypes.c_int(kn.n_done_needed),
-            ctypes.c_float(kn.sign),
+            ctypes.c_int(kn.n_blobs), ctypes.c_float(kn.sign),
             ctypes.c_float(kn.tol_grad), ctypes.c_float(kn.tol_cost_eff),
             ctypes.c_float(kn.mu_min), ctypes.c_float(kn.mu_max),
             ctypes.c_float(kn.mu_factor), ctypes.c_float(kn.ddp_gate),
-            ctypes.c_int(kn.n_ls), ctypes.c_int(int(kn.ddp)),
-            ctypes.c_int(int(kn.fast_trig)), ctypes.c_int(int(kn.adaptive)),
-            ctypes.c_int(int(kn.tile_exit)), ctypes.c_void_p(stream))
+            *(ctypes.c_int(int(v)) for v in kn.variant),
+            ctypes.c_void_p(stream))
     _build.check(launch, err, "solve_mega")
     launches += 1
     return (ss, us, *outs)
 
 
-def solve_mega(zT, cT, pp, lb, ub, u0, cfg, resume=None):
+def solve_mega(zT, cT, pp, lb, ub, u0, cfg, resume=None, blobs=None,
+               refs=None):
     """The megakernel solve: CPU tensors run `solve_mega_plain`, CUDA
     tensors the kernel (float32 only; anything else raises)."""
-    if zT.is_cuda:
-        return solve_mega_cuda(zT, cT, pp, lb, ub, u0, cfg, resume)
-    return solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume)
+    fn = solve_mega_cuda if zT.is_cuda else solve_mega_plain
+    return fn(zT, cT, pp, lb, ub, u0, cfg, resume, blobs=blobs, refs=refs)
 
 
 # ------------------------------------------------------------ schedules
 
 
-def _pass(zT, cT, pp, lb, ub, u0, cfg, plain, resume=None):
+def _pass(zT, cT, pp, lb, ub, u0, cfg, plain, resume=None, blobs=None,
+          refs=None):
     """One solve pass of a schedule, counted."""
     global passes
     passes += 1
-    if plain:
-        return solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume)
-    return solve_mega(zT, cT, pp, lb, ub, u0, cfg, resume)
+    fn = solve_mega_plain if plain else solve_mega
+    return fn(zT, cT, pp, lb, ub, u0, cfg, resume, blobs=blobs, refs=refs)
 
 
-def solve_mega_scheduled(zT, cT, pp, lb, ub, u0, cfg, plain=False):
+def solve_mega_scheduled(zT, cT, pp, lb, ub, u0, cfg, plain=False,
+                         blobs=None, refs=None):
     """The megakernel under the SolverConfig iteration schedule
     (counterpart of `solve_pallas_scheduled`): "auto" resolves to the
     compact schedule at n_steps > 36 and to the single pass otherwise;
     "sorted" with 1 <= presolve_iters < max_sqp_iters runs the sorted two
     passes; anything else one pass. `plain=True` runs every pass on the
     plain version, whatever the device (to hold the kernel's schedule
-    against it on the card)."""
+    against it on the card). Blobs and setpoints travel with their lanes
+    through every permutation and gather."""
     schedule = cfg.schedule
     if schedule == "auto" and cfg.n_steps > 36:
         schedule = "compact"
     if schedule == "compact":
-        return _solve_compact(zT, cT, pp, lb, ub, u0, cfg, plain)
+        return _solve_compact(zT, cT, pp, lb, ub, u0, cfg, plain, blobs,
+                              refs)
     k1 = cfg.presolve_iters
     if cfg.schedule == "sorted" and 1 <= k1 < cfg.max_sqp_iters:
-        return _solve_sorted(zT, cT, pp, lb, ub, u0, cfg, plain)
-    return _pass(zT, cT, pp, lb, ub, u0, cfg, plain)
+        return _solve_sorted(zT, cT, pp, lb, ub, u0, cfg, plain, blobs, refs)
+    return _pass(zT, cT, pp, lb, ub, u0, cfg, plain, blobs=blobs, refs=refs)
 
 
-def _solve_sorted(zT, cT, pp, lb, ub, u0, cfg, plain):
+def _take(idx, blobs, refs):
+    """The blobs and setpoints of the lanes `idx`, in that order."""
+    return (None if blobs is None else
+            tuple(b.index_select(-1, idx) for b in blobs),
+            None if refs is None else refs.index_select(-1, idx))
+
+
+def _solve_sorted(zT, cT, pp, lb, ub, u0, cfg, plain, blobs=None,
+                  refs=None):
     """Sorted two passes (`solve_pallas_scheduled`): `presolve_iters`
     iterations for every lane; a stable sort putting done lanes first and
     the rest by projected gradient; the remaining budget on the permuted
@@ -722,7 +875,7 @@ def _solve_sorted(zT, cT, pp, lb, ub, u0, cfg, plain):
     cfg1 = dataclasses.replace(cfg, max_sqp_iters=k1)
     cfg2 = dataclasses.replace(cfg, max_sqp_iters=cfg.max_sqp_iters - k1)
     ss1, us1, cost1, conv1, it1, gn1, mu1, done1 = _pass(
-        zT, cT, pp, lb, ub, u0, cfg1, plain)
+        zT, cT, pp, lb, ub, u0, cfg1, plain, blobs=blobs, refs=refs)
     key = torch.where(done1 > 0.5, torch.full_like(gn1, -1.0), gn1)
     # stable, as jnp.argsort: equal keys keep their order, so lanes land
     # in the same tiles as in the JAX package
@@ -732,42 +885,61 @@ def _solve_sorted(zT, cT, pp, lb, ub, u0, cfg, plain):
     def tk(a):
         return a.index_select(-1, perm)
 
+    blobs2, refs2 = _take(perm, blobs, refs)
     outs = _pass(tk(zT), tk(cT), tk(pp), tk(lb), tk(ub), tk(us1), cfg2,
-                 plain, resume=(tk(done1), tk(conv1), tk(mu1), tk(gn1)))
+                 plain, resume=(tk(done1), tk(conv1), tk(mu1), tk(gn1)),
+                 blobs=blobs2, refs=refs2)
     ss, us, cost, conv, it2, gnorm, mu, done = (
         a.index_select(-1, inv_perm) for a in outs)
     return ss, us, cost, conv, it1 + it2, gnorm, mu, done
 
 
-def _solve_compact(zT, cT, pp, lb, ub, u0, cfg, plain):
-    """Compact straggler schedule (`_solve_compact` of the JAX package).
-
-    Pass 1 runs the whole batch with each tile stopping once
-    `compact_frac` of its lanes are done. The lanes that still need work
-    (stable order; under the long-horizon pair also the stalled ones, done
-    but not converged) are gathered into a tile-granular tail of
-    ceil(compact_tail * B / TILE) * TILE lanes, padded with done lanes.
-    Pass 2 resumes the tail to completion and the results are scattered
-    back. Under the pair, pass 2 runs the conservative gate 0.75 at the
-    same mu floor 1e-2 with twice the iteration budget, and stalled lanes
-    re-enter with done cleared, mu reset to the (weight-scaled) floor and
-    gnorm at +inf. Lanes that need pass 2 beyond the tail keep their
-    pass-1 iterate and report unconverged; `last_need` counts them in."""
-    global tail_lanes, last_need
-    B = zT.shape[-1]
-    dtype = zT.dtype
+def compact_n_tail(B: int, cfg) -> int:
+    """The compact tail's lanes: ceil(compact_tail * B / TILE) tiles, at
+    least one and at most the batch (then the schedule is one pass)."""
     n_tail = int(-(-B * cfg.compact_tail // TILE)) * TILE
-    n_tail = max(TILE, min(n_tail, B))
-    if n_tail >= B:
-        # batch too small for a compaction win — single pass
-        return _pass(zT, cT, pp, lb, ub, u0, cfg, plain)
-    cfg1 = dataclasses.replace(cfg, done_frac=cfg.compact_frac)
-    ss1, us1, cost1, conv1, it1, gn1, mu1, done1 = _pass(
-        zT, cT, pp, lb, ub, u0, cfg1, plain)
-    pair = cfg._long_horizon_pair(dtype, False)
+    return max(TILE, min(n_tail, B))
+
+
+def compact_pass1_cfg(cfg):
+    """Pass 1 of the compact schedule: each tile stops once `compact_frac`
+    of its lanes are done."""
+    return dataclasses.replace(cfg, done_frac=cfg.compact_frac)
+
+
+@dataclasses.dataclass
+class CompactTail:
+    """Pass 2 of the compact schedule, built from pass 1's outputs: the
+    tail's lanes `sel` (those that need work first, in stable order), its
+    inputs (zT, cT, params, lb, ub, and pass 1's controls as u0), its
+    config, resume state, blobs and setpoints, and `need`, the number of
+    lanes that needed pass 2 (0-d)."""
+
+    sel: torch.Tensor
+    ins: tuple
+    cfg: object
+    resume: tuple
+    blobs: tuple
+    refs: torch.Tensor
+    need: torch.Tensor
+
+
+def compact_tail(ins, out1, cfg, blobs=None, refs=None) -> CompactTail:
+    """Gather pass 2 of the compact schedule from the inputs `ins` (zT,
+    cT, params, lb, ub, u0) and pass 1's outputs `out1`. Under the
+    long-horizon pair the stalled lanes (done but not converged) need
+    work too; pass 2 runs the conservative gate 0.75 at the same mu floor
+    1e-2 with twice the iteration budget, and stalled lanes re-enter with
+    done cleared, mu reset to the (weight-scaled) floor and gnorm at
+    +inf."""
+    zT, cT, pp, lb, ub, _ = ins
+    _, us1, _, conv1, _, gn1, mu1, done1 = out1
+    dtype = zT.dtype
+    has_obs = blobs is not None
+    pair = cfg._long_horizon_pair(dtype, has_obs)
     need = ((done1 < 0.5) | (conv1 < 0.5)) if pair else done1 < 0.5
-    last_need = need.sum()
-    sel = torch.argsort((~need).to(torch.uint8), stable=True)[:n_tail]
+    sel = torch.argsort((~need).to(torch.uint8), stable=True)[
+        :compact_n_tail(zT.shape[-1], cfg)]
 
     def tk(a):
         return a.index_select(-1, sel)
@@ -779,7 +951,7 @@ def _solve_compact(zT, cT, pp, lb, ub, u0, cfg, plain):
     d1s, c1s, m1s, g1s = tk(done1), tk(conv1), tk(mu1), tk(gn1)
     if pair:
         stalled1 = (d1s > 0.5) & (c1s < 0.5)
-        floor2 = torch.full_like(m1s, cfg2.mu_init_for(dtype, False))
+        floor2 = torch.full_like(m1s, cfg2.mu_init_for(dtype, has_obs))
         if cfg.scale_adaptive:
             # the kernel's mu floor is weight-scaled per lane, and so is
             # the reset: s = max(1, sum(w) / 470)
@@ -791,13 +963,41 @@ def _solve_compact(zT, cT, pp, lb, ub, u0, cfg, plain):
         d1s = torch.where(stalled1, torch.zeros_like(d1s), d1s)
         m1s = torch.where(stalled1, floor2, m1s)
         g1s = torch.where(stalled1, torch.full_like(g1s, float("inf")), g1s)
-    tail_lanes += n_tail
-    ss2, us2, cost2, conv2, it2, gn2, mu2, done2 = _pass(
-        tk(zT), tk(cT), tk(pp), tk(lb), tk(ub), tk(us1), cfg2, plain,
-        resume=(d1s, c1s, m1s, g1s))
+    blobs2, refs2 = _take(sel, blobs, refs)
+    return CompactTail(sel, (tk(zT), tk(cT), tk(pp), tk(lb), tk(ub),
+                             tk(us1)), cfg2, (d1s, c1s, m1s, g1s), blobs2,
+                       refs2, need.sum())
 
-    def scat(full, tail):
-        return full.index_copy(full.dim() - 1, sel, tail)
+
+def _solve_compact(zT, cT, pp, lb, ub, u0, cfg, plain, blobs=None,
+                   refs=None):
+    """Compact straggler schedule (`_solve_compact` of the JAX package).
+
+    Pass 1 runs the whole batch with each tile stopping once
+    `compact_frac` of its lanes are done. The lanes that still need work
+    are gathered into a tile-granular tail of `compact_n_tail` lanes,
+    padded with done lanes (`compact_tail`). Pass 2 resumes the tail to
+    completion and the results are scattered back. Lanes that need pass 2
+    beyond the tail keep their pass-1 iterate and report unconverged;
+    `last_need` counts them in."""
+    global tail_lanes, last_need
+    ins = (zT, cT, pp, lb, ub, u0)
+    n_tail = compact_n_tail(zT.shape[-1], cfg)
+    if n_tail >= zT.shape[-1]:
+        # batch too small for a compaction win — single pass
+        return _pass(*ins, cfg, plain, blobs=blobs, refs=refs)
+    out1 = _pass(*ins, compact_pass1_cfg(cfg), plain, blobs=blobs, refs=refs)
+    tail = compact_tail(ins, out1, cfg, blobs, refs)
+    last_need = tail.need
+    tail_lanes += n_tail
+    out2 = _pass(*tail.ins, tail.cfg, plain, resume=tail.resume,
+                 blobs=tail.blobs, refs=tail.refs)
+    ss1, us1, cost1, conv1, it1, gn1, mu1, done1 = out1
+    ss2, us2, cost2, conv2, it2, gn2, mu2, done2 = out2
+    sel = tail.sel
+
+    def scat(full, part):
+        return full.index_copy(full.dim() - 1, sel, part)
 
     return (scat(ss1, ss2), scat(us1, us2), scat(cost1, cost2),
             scat(conv1, conv2), it1.index_add(0, sel, it2), scat(gn1, gn2),

@@ -8,8 +8,8 @@ the registry's uniform signatures:
                                               coeffs (..., P)
   control_bounds(p, dtype, device)   -> (lb, ub), each (2,) or (2, B)
 
-The Jacobians, the augmented-state wrappers and the bicycle family are
-not ported yet (ROADMAP Queue 1, item 3).
+The registry holds "diff_drive" and "bicycle". The Jacobians and the
+augmented-state wrappers are not ported yet (ROADMAP Queue 1, item 3).
 """
 
 from __future__ import annotations

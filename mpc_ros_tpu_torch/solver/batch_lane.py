@@ -6,21 +6,27 @@ u_init (B, T, 2), a batch-major SolveResult); inside, every array is
 batch-last ((T, 8, 8, B) and so on), so the kernels read coalesced rows.
 
 Three routes, chosen by the JAX package's dispatch rule. `kernels_ok` is
-float32, B % 128 == 0 and diff-drive (grid maps and blobs are not ported):
+float32, B % 128 == 0, a lane-specialized family ("diff_drive" or
+"bicycle") and no grid obstacle maps:
 
 * the whole-solve kernel (`kernels/solve_mega.py`, K1) for
   `backward="mega"`, or `"auto"` on CUDA tensors (the counterpart of
-  running on the TPU);
+  running on the TPU); it takes blobs, per-knot setpoints (`refs`) and
+  both families;
 * the legacy two-kernel route for `backward="pallas"`: the SQP loop below
   with the fused backward kernel (`kernels/backward_fused.py`, K4) and the
-  fused line-search kernel (`kernels/forward.py`, K5), Gauss-Newton only;
+  fused line-search kernel (`kernels/forward.py`, K5), Gauss-Newton,
+  diff-drive and no blobs only — with blobs or the bicycle, "pallas" runs
+  the XLA lane path;
 * the XLA lane path for everything else — `"xla"`, `"auto"` on CPU
   tensors, f64, B % 128 != 0 — the same loop with the plain PyTorch
-  stages `_backward_bl` and `_forward_multi_alpha_bl`.
+  stages `_backward_bl` and `_forward_multi_alpha_bl`, blob terms and the
+  bicycle rows included.
 
 CPU tensors run each kernel's plain version, CUDA tensors launch the
-kernel. Blobs, grid obstacle maps, per-knot setpoints and the bicycle
-family raise NotImplementedError naming their ROADMAP item.
+kernel. Per-knot setpoints off the kernel route need the single-scenario
+solver (ROADMAP Queue 1, item 4) and grid obstacle maps need
+`ObstacleMap` (item 9); both raise NotImplementedError naming the item.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from ..kernels.pack import pack_params
 from ..kernels.solve_mega import solve_mega_scheduled
 from ..models.base import get_model
 from ..models.costs import scaled_solver_knobs
+from ..models.obstacles import blob_concave_bl, blob_terms_bl
 from .types import SolveResult
 
 # active-set enumeration order of the XLA box QP
@@ -49,11 +56,6 @@ def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet ({item})")
 
 
-def _bicycle():
-    _not_ported("model='bicycle'", "ROADMAP Queue 1, item 3 and Queue 2, K1 "
-                "stage (g)")
-
-
 def _pl(p, name, dtype, device):
     return torch.as_tensor(getattr(p, name), dtype=dtype, device=device)
 
@@ -63,14 +65,18 @@ def _pl(p, name, dtype, device):
 
 def _step_bl(s, u, coeffs, dt, sign, model="diff_drive", p=None):
     """Augmented step, batch-last. s (..., 8, B), u (..., 2, B), coeffs
-    (P, B); leading dims broadcast (the alpha axis)."""
-    if model != "diff_drive":
-        _bicycle()
+    (P, B); leading dims broadcast (the alpha axis). "diff_drive" advances
+    theta by omega dt, "bicycle" by v delta dt / lf (lf a scalar or per-lane
+    MPCParams leaf)."""
     x, y, th, v, cte, eth = (s[..., i, :] for i in range(6))
     w = u[..., 0, :]
     a = u[..., 1, :]
     f0 = tiles.polyval(coeffs, x)
-    inc = w * dt
+    if model == "bicycle":
+        inc = v * w * (dt / torch.as_tensor(p.lf, dtype=x.dtype,
+                                            device=x.device))
+    else:
+        inc = w * dt
     rows = [
         x + v * torch.cos(th) * dt,
         y + v * torch.sin(th) * dt,
@@ -223,8 +229,6 @@ def _stage_linexp_bl(s, u, coeffs, dt, sign, rate_on, p, dtype,
     l_u (..., 2), l_ss (..., 8, 8), l_uu (..., 2, 2), l_us (..., 2, 8),
     where "..." is the per-lane shape: (B,) for one stage, (T, B) for all
     stages at once (the JAX vmap over T; rate_on then (T, 1))."""
-    if model != "diff_drive":
-        _bicycle()
     dev = s.device
     x = s[0]
     th = s[2]
@@ -245,14 +249,20 @@ def _stage_linexp_bl(s, u, coeffs, dt, sign, rate_on, p, dtype,
         return torch.stack([torch.stack(r, dim=-2) for r in rows], dim=-3)
 
     z2 = [zero, zero]
-    dth_du0 = dt_ * one
+    if model == "bicycle":
+        k_lf = dt_ / _pl(p, "lf", dtype, dev)     # per lane when lf is (B,)
+        dth_dv = bz(u[0] * k_lf)                  # d(theta')/dv = delta dt/lf
+        dth_du0 = bz(v * k_lf)                    # d(theta')/d delta
+    else:
+        dth_dv = zero
+        dth_du0 = dt_ * one
     A = M([
         [one, zero, -v * st * dt_, ct * dt_, zero, zero] + z2,
         [zero, one, v * ct * dt_, st * dt_, zero, zero] + z2,
-        [zero, zero, one, zero, zero, zero] + z2,
+        [zero, zero, one, dth_dv, zero, zero] + z2,
         [zero, zero, zero, one, zero, zero] + z2,
         [fp, -one, zero, sign * se * dt_, zero, sign * v * ce * dt_] + z2,
-        [zero, zero, zero, zero, zero, one] + z2,
+        [zero, zero, zero, dth_dv, zero, one] + z2,
         [zero] * 8,
         [zero] * 8,
     ])
@@ -307,11 +317,13 @@ def _backward_bl(ss, us, coeffs, dt, sign, p, V_s, V_ss, lb, ub, mu,
     """Control-limited Riccati scan, batch-last. mu (B,). The stage
     Jacobians and quadratics are materialized for all T stages at once
     (with a batch dimension, as the JAX vmap does) and the reverse scan is
-    a loop over T. Returns ks (T,2,B), Ks (T,2,8,B), dV1, dV2, pg (B,)."""
+    a loop over T. `blobs`: four lane-major (K, B) tensors
+    (`GaussianObstacles.lane()`), whose gradient and Gauss-Newton curvature
+    join each stage's cost expansion; under gated DDP the concave -2 g v I
+    part is added back on the lanes past the gate. Returns ks (T,2,B),
+    Ks (T,2,8,B), dV1, dV2, pg (B,)."""
     if omaps is not None:
         _not_ported("grid obstacle maps (omaps)", "ROADMAP Queue 1, item 9")
-    if blobs is not None:
-        _not_ported("blobs on the XLA lane path", "ROADMAP Queue 1, item 9")
     dtype = ss.dtype
     dev = ss.device
     T = us.shape[0]
@@ -323,6 +335,21 @@ def _backward_bl(ss, us, coeffs, dt, sign, p, V_s, V_ss, lb, ub, mu,
     A, Bm, l_s, l_u, l_ss, l_uu, l_us = _stage_linexp_bl(
         ss[:-1].movedim(0, 1), us.movedim(0, 1), coeffs, dt, sign,
         rate[:, None], p, dtype, model)
+    if blobs is not None:
+        x_t, y_t = ss[:-1, 0], ss[:-1, 1]
+        _, gx, gy, hxx, hxy, hyy = blob_terms_bl(*blobs, x_t, y_t)
+        if ddp and ddp_mask is not None:
+            # the exact blob Hessian past the gate: GN keeps only the PSD
+            # outer product, the gated DDP adds the concave -2 g v I back
+            corr = blob_concave_bl(*blobs, x_t, y_t) * ddp_mask
+            hxx = hxx - corr
+            hyy = hyy - corr
+        l_s[:, 0] += gx
+        l_s[:, 1] += gy
+        l_ss[:, 0, 0] += hxx
+        l_ss[:, 0, 1] += hxy
+        l_ss[:, 1, 0] += hxy
+        l_ss[:, 1, 1] += hyy
     if ddp:
         # exact second-order dynamics data per stage: the only nonzero
         # d2f/ds2 entries are rows 0/1 (v cos/sin theta) and row 4 (f(x)
@@ -335,6 +362,7 @@ def _backward_bl(ss, us, coeffs, dt, sign, p, V_s, V_ss, lb, ub, mu,
             tiles.polyder2(coeffs, ss[:-1, 0]),
         ], dim=1)                                          # (T, 6, B)
     dt_c = torch.as_tensor(dt, dtype=dtype, device=dev)
+    lf_c = _pl(p, "lf", dtype, dev) if model == "bicycle" else None
 
     Vs, Vss = V_s, V_ss
     ks, Ks, dV1s, dV2s, pgs = ([None] * T for _ in range(5))
@@ -365,6 +393,10 @@ def _backward_bl(ss, us, coeffs, dt, sign, p, V_s, V_ss, lb, ub, mu,
                               ((0, 0), q00), ((5, 5), q55), ((3, 5), q35),
                               ((5, 3), q35)):
                 Qss[i, j] = Qss[i, j] + q
+            if model == "bicycle":
+                # theta rows 2/5: d2(v delta dt / lf) / dv d delta
+                Qus = Qus.clone()
+                Qus[0, 3] = Qus[0, 3] + (Vs[2] + Vs[5]) * (dt_c / lf_c) * g
         Quu_reg = Quu + mu[None, None, :] * eye2
 
         k, _free, K = _boxqp_bl(Quu_reg, Qu, lb - u_t, ub - u_t, Qus)
@@ -463,14 +495,25 @@ class LaneSQP:
     `two_kernel` is None for the XLA lane stages, or a (backward, forward)
     pair from `two_kernel_stages` for the two-kernel route, whose knobs
     resolve with `scale_adaptive=False` (its pg is not weight-scale
-    normalized). The loop reads its exit condition on the host once per
-    iteration; `backward_inputs` / `forward_inputs` give the stage inputs
-    of the next iteration."""
+    normalized); that route takes neither blobs nor the bicycle. `blobs`
+    (a `GaussianObstacles` with (B, K) leaves) adds the blob penalty to
+    every knot's cost, its expansion to the backward and the terminal
+    value, and resolves the gate and the mu floor with obstacles. The loop
+    reads its exit condition on the host once per iteration;
+    `backward_inputs` / `forward_inputs` give the stage inputs of the next
+    iteration."""
 
     def __init__(self, z0s, coeffs, p, cfg: SolverConfig, u_init=None,
-                 two_kernel=None):
+                 two_kernel=None, blobs=None):
         dtype = z0s.dtype
         dev = z0s.device
+        if two_kernel is not None and (blobs is not None
+                                       or cfg.model != "diff_drive"):
+            raise ValueError("the two-kernel route is diff-drive only and "
+                             "takes no blobs")
+        # 4x (K, B): cx, cy, gamma, w
+        self.bl = (None if blobs is None else
+                   tuple(a.to(dtype=dtype, device=dev) for a in blobs.lane()))
         self.cfg, self.p, self.dtype = cfg, p, dtype
         self.B = z0s.shape[0]
         self.T = T = cfg.n_controls
@@ -484,7 +527,10 @@ class LaneSQP:
                                         device=dev)])
         self.use_ddp = cfg.ddp_for(dtype)
         self.n_ls = cfg.ls_for(dtype)
-        self.gate = cfg.gate_for(False, dtype)
+        # with obstacles the auto gate is capped at 0.75 and the mu floor
+        # resolves without the long-horizon pair
+        has_obs = self.bl is not None
+        self.gate = cfg.gate_for(has_obs, dtype)
 
         def t(x):
             return torch.as_tensor(x, dtype=dtype, device=dev)
@@ -495,7 +541,8 @@ class LaneSQP:
         knob_cfg = (cfg if two_kernel is None
                     else dataclasses.replace(cfg, scale_adaptive=False))
         (self.mu_min, self.mu_max, self.inv_scl,
-         self.cost_guard) = scaled_solver_knobs(knob_cfg, p, dtype, dev)
+         self.cost_guard) = scaled_solver_knobs(knob_cfg, p, dtype, dev,
+                                                has_obstacles=has_obs)
         self.mu_factor = t(cfg.mu_factor)
         self.alphas = t(0.5) ** torch.arange(self.n_ls, dtype=dtype,
                                              device=dev)
@@ -503,6 +550,8 @@ class LaneSQP:
 
         self.ss, self.cost = _rollout_and_cost(
             s0, us0, self.cT, self.dt, self.sign, p, dtype, T, self.model)
+        if has_obs:
+            self.cost = self.cost + self._obs_cost_knots(self.ss)
         self.us = us0
         B = self.B
         self.mu = self.mu_min.expand(B).clone()
@@ -512,6 +561,11 @@ class LaneSQP:
         self.n_small = torch.zeros((B,), dtype=torch.int32, device=dev)
         self.conv = torch.zeros((B,), dtype=torch.bool, device=dev)
         self.iters = torch.zeros((B,), dtype=torch.int32, device=dev)
+
+    def _obs_cost_knots(self, ss):
+        """The blob penalty summed over every knot: ss (T+1, ..., 8, B) ->
+        (..., B)."""
+        return blob_terms_bl(*self.bl, ss[..., 0, :], ss[..., 1, :])[0].sum(0)
 
     def running(self) -> bool:
         """The loop condition, read on the host: iterations left, and not
@@ -548,10 +602,24 @@ class LaneSQP:
         else:
             dmask = (gnorm < self.gate).to(dtype) if self.use_ddp else None
             V_s, V_ss = _terminal_bl(ss[-1], self.p, dtype)
+            if self.bl is not None:
+                xT, yT = ss[-1, 0], ss[-1, 1]
+                _, gxT, gyT, hxxT, hxyT, hyyT = blob_terms_bl(*self.bl, xT,
+                                                              yT)
+                if dmask is not None:
+                    corrT = blob_concave_bl(*self.bl, xT, yT) * dmask
+                    hxxT = hxxT - corrT
+                    hyyT = hyyT - corrT
+                V_s[0] += gxT
+                V_s[1] += gyT
+                V_ss[0, 0] += hxxT
+                V_ss[0, 1] += hxyT
+                V_ss[1, 0] += hxyT
+                V_ss[1, 1] += hyyT
             ks, Ks, dV1, dV2, pg = _backward_bl(
                 ss, us, self.cT, self.dt, self.sign, self.p, V_s, V_ss,
-                self.lb, self.ub, mu, model=self.model, ddp=self.use_ddp,
-                ddp_mask=dmask, inv_scale=self.inv_scl)
+                self.lb, self.ub, mu, blobs=self.bl, model=self.model,
+                ddp=self.use_ddp, ddp_mask=dmask, inv_scale=self.inv_scl)
 
         pred_decrease = -(dV1 + dV2)
         tiny_model = pred_decrease <= self.tol_cost * (self.cost_guard
@@ -566,6 +634,9 @@ class LaneSQP:
             ss_all, us_all, costs_all = _forward_multi_alpha_bl(
                 ss, us, ks, Ks, self.alphas, self.cT, self.dt, self.sign,
                 self.lb, self.ub, self.p, dtype, self.model)
+            if self.bl is not None:
+                # ss_all (T+1, n_ls, 8, B): each candidate's blob penalty
+                costs_all = costs_all + self._obs_cost_knots(ss_all)
             improved = costs_all < cost[None]                    # (n_ls, B)
             accepted = torch.any(improved, dim=0)
             rank = torch.arange(n_ls, device=ss.device)[:, None]
@@ -641,21 +712,20 @@ def batch_solve_lane(z0s: torch.Tensor, coeffs: torch.Tensor, p,
                      refs=None) -> SolveResult:
     """Lane-major batched solve. z0s (B, 6), coeffs (B, P); per-scenario
     MPCParams leaves of shape (B,) ride the lanes. Returns a batch-major
-    SolveResult."""
+    SolveResult.
+
+    `blobs`: a `GaussianObstacles` with (B, K) leaves, per-scenario
+    parametric obstacles (the kernel route and the XLA lane path carry
+    them). `refs`: (B, n_steps, 3) per-knot (ref_cte, ref_etheta, ref_vel)
+    setpoint profiles, taken by the kernel route only."""
     if omaps is not None:
         _not_ported("batch_solve_lane(omaps=...)", "ROADMAP Queue 1, item 9")
-    if blobs is not None:
-        _not_ported("batch_solve_lane(blobs=...)",
-                    "ROADMAP Queue 2, K1 stage (e)")
-    if refs is not None:
-        _not_ported("batch_solve_lane(refs=...)",
-                    "ROADMAP Queue 2, K1 stage (f)")
-    if cfg.model == "bicycle":
-        _bicycle()
-    if cfg.model != "diff_drive":
+    if cfg.model not in ("diff_drive", "bicycle"):
+        # the lane stages are specialized per family; other families need
+        # the registry-generic single-scenario solver
         raise ValueError(
-            f"batch_solve_lane supports the lane-specialized families, got "
-            f"{cfg.model!r}")
+            f"batch_solve_lane supports the lane-specialized families "
+            f"('diff_drive', 'bicycle'), got {cfg.model!r}")
     if cfg.backward not in ("auto", "mega", "pallas", "xla"):
         raise ValueError(f"unknown backward {cfg.backward!r}")
 
@@ -664,12 +734,26 @@ def batch_solve_lane(z0s: torch.Tensor, coeffs: torch.Tensor, p,
     on_cuda = z0s.device.type == "cuda"
     use_mega = kernels_ok and (cfg.backward == "mega" or (
         cfg.backward == "auto" and on_cuda))
-    use_pallas = kernels_ok and cfg.backward == "pallas"
+    # the two-kernel route predates obstacles and the bicycle: with either,
+    # "pallas" runs the XLA lane path
+    use_pallas = (not use_mega and kernels_ok and blobs is None
+                  and cfg.backward == "pallas" and cfg.model == "diff_drive")
+    if refs is not None and not use_mega:
+        # the XLA lane stages keep the scalar setpoints; the JAX package
+        # solves profiles off the kernel with its single-scenario solver
+        _not_ported("batch_solve_lane(refs=...) off the kernel route",
+                    "ROADMAP Queue 1, item 4: solver/ilqr.py")
     if use_mega:
         zT, cT, pp, lb, ub, us0 = lane_inputs(z0s, coeffs, p, cfg, u_init)
+        dtype, dev = z0s.dtype, z0s.device
+        bl = (None if blobs is None else
+              tuple(a.to(dtype=dtype, device=dev) for a in blobs.lane()))
+        refsT = (None if refs is None else torch.as_tensor(
+            refs, dtype=dtype, device=dev).permute(1, 2, 0).contiguous())
         # CUDA tensors launch the kernel, CPU tensors run its plain version
         (ss_f, us_f, cost_f, conv_f, iters_f, gnorm_f, mu_f,
-         _done) = solve_mega_scheduled(zT, cT, pp, lb, ub, us0, cfg)
+         _done) = solve_mega_scheduled(zT, cT, pp, lb, ub, us0, cfg,
+                                       blobs=bl, refs=refsT)
         return SolveResult(
             us=us_f.permute(2, 0, 1),               # (B, T, 2)
             zs=ss_f[:, :6, :].permute(2, 0, 1),     # (B, N, 6)
@@ -681,4 +765,4 @@ def batch_solve_lane(z0s: torch.Tensor, coeffs: torch.Tensor, p,
         )
     if use_pallas:
         return solve_two_kernel(z0s, coeffs, p, cfg, u_init)
-    return LaneSQP(z0s, coeffs, p, cfg, u_init).run()
+    return LaneSQP(z0s, coeffs, p, cfg, u_init, blobs=blobs).run()

@@ -110,15 +110,21 @@ def test_random_scenarios_distribution():
     assert torch.equal(z0s, z2) and torch.equal(coeffs, c2)
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(model="bicycle"), "ROADMAP"),
-    (dict(blobs=object()), "ROADMAP"),
-    (dict(refs=object()), "ROADMAP"),
-    (dict(omaps=object()), "ROADMAP"),
-], ids=["bicycle", "blobs", "refs", "omaps"])
-def test_unported_paths_raise(kw, match):
+@pytest.mark.parametrize("kw,exc,match", [
+    (dict(refs=object(), backward="xla"), NotImplementedError,
+     "Queue 1, item 4"),
+    (dict(refs=object()), NotImplementedError, "Queue 1, item 4"),
+    (dict(omaps=object()), NotImplementedError, "Queue 1, item 9"),
+    (dict(omaps=object(), backward="mega"), NotImplementedError,
+     "Queue 1, item 9"),
+    (dict(model="tricycle"), ValueError, "lane-specialized families"),
+], ids=["refs_xla", "refs", "omaps", "omaps_mega", "unknown_model"])
+def test_unported_paths_raise(kw, exc, match):
+    """Per-knot setpoints off the kernel route wait for the single-scenario
+    solver, grid obstacle maps for `ObstacleMap`; a family the lane stages
+    are not specialized for raises."""
     z0, coeffs = numpy_scenarios(0, B)
     cfg_kw = {k: kw.pop(k) for k in ("backward", "model") if k in kw}
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         batch_solve_lane(torch.tensor(z0), torch.tensor(coeffs), MPCParams(),
                          SolverConfig(n_steps=N, **cfg_kw), **kw)

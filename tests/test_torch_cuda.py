@@ -255,3 +255,114 @@ def test_long_horizon_compact_engaged(dev):
                      res.n_iters.cpu(), plain[1].permute(2, 0, 1).cpu(),
                      plain[2].cpu(), plain[3].cpu(), plain[4].cpu(), 48)
     assert g["ok"], g
+
+
+# K1 stages (e)-(g): the new variants of the solve kernel
+NEW_VARIANTS = ["blobs_gn", "blobs_ddp", "bicycle_exact", "bicycle_fast_lf",
+                "refs", "blobs_refs"]
+
+
+def _variant_inputs(dev, variant, B, seed=8):
+    """(config, kernel inputs, blobs, refs) of one new variant: blobs in
+    `bench.py`'s layout (K=4), per-lane ramp profiles, the bicycle with
+    the default or a per-lane wheelbase."""
+    from mpc_ros_tpu_torch.models.obstacles import GaussianObstacles
+    from mpc_ros_tpu_torch.testing import numpy_blobs, numpy_refs
+
+    cfg = {"blobs_gn": dataclasses.replace(PROD, ddp=False, ls_iters=8),
+           "bicycle_exact": dataclasses.replace(PROD, model="bicycle",
+                                                trig="exact"),
+           "bicycle_fast_lf": dataclasses.replace(PROD, model="bicycle",
+                                                  trig="fast"),
+           }.get(variant, PROD)
+    leaves = ({"lf": torch.linspace(0.3, 0.8, B)}
+              if variant == "bicycle_fast_lf" else {})
+    p = MPCParams(**leaves).astype(torch.float32, dev)
+    z0s, coeffs = _scen(dev, B, seed)
+    ins = lane_inputs(z0s, coeffs, p, cfg)
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    blobs = (GaussianObstacles.from_sigmas(
+        *(t(a) for a in numpy_blobs(seed, B))).lane()
+        if "blobs" in variant else None)
+    refs = (t(numpy_refs(seed, B, cfg.n_steps)).permute(1, 2, 0)
+            .contiguous() if "refs" in variant else None)
+    return cfg, ins, blobs, refs
+
+
+@pytest.mark.parametrize("B", [1024, 8192])
+@pytest.mark.parametrize("variant", NEW_VARIANTS)
+def test_new_kernel_variants_match_plain(dev, variant, B):
+    """Blobs (GN and gated DDP), the bicycle (exact trig; fast trig with a
+    per-lane wheelbase), a setpoint profile, and blobs with a profile:
+    the kernel against its plain version at the `kernel_verify` gates."""
+    cfg, ins, blobs, refs = _variant_inputs(dev, variant, B)
+    before = solve_mega.launches
+    k = solve_mega.solve_mega_cuda(*ins, cfg, blobs=blobs, refs=refs)
+    p = solve_mega.solve_mega_plain(*ins, cfg, blobs=blobs, refs=refs)
+    torch.cuda.synchronize()
+    assert solve_mega.launches == before + 1
+    g = _gates(k, p, cfg.n_steps)
+    assert g["ok"], g
+
+
+@pytest.mark.parametrize("variant", ["blobs_ddp", "bicycle_fast_lf"])
+def test_blobs_and_bicycle_dispatch(dev, variant):
+    """With blobs or the bicycle, "pallas" on CUDA tensors runs the XLA
+    lane path (neither K4 nor K5 launches), and "auto" launches K1 once
+    per solve."""
+    from mpc_ros_tpu_torch.models.obstacles import GaussianObstacles
+
+    cfg, ins, bl, _ = _variant_inputs(dev, variant, 1024)
+    z0s, coeffs = _scen(dev, 1024, seed=8)
+    p = MPCParams(**({"lf": torch.linspace(0.3, 0.8, 1024)}
+                     if variant == "bicycle_fast_lf" else {})).astype(
+        torch.float32, dev)
+    blobs = (None if bl is None else GaussianObstacles(
+        *(a.transpose(0, 1) for a in bl)))
+    before = _launch_counts()
+    res = batch_solve_lane(z0s, coeffs, p, cfg, blobs=blobs)
+    torch.cuda.synchronize()
+    assert _launch_counts() == (before[0] + 1, before[1], before[2])
+    assert res.us.is_cuda and bool(torch.isfinite(res.us).all())
+    route = dataclasses.replace(cfg, backward="pallas", ddp="auto",
+                                ls_iters=None)
+    res = batch_solve_lane(z0s, coeffs, p, route, blobs=blobs)
+    torch.cuda.synchronize()
+    assert _launch_counts() == (before[0] + 1, before[1], before[2])
+    assert res.us.is_cuda and bool(torch.isfinite(res.us).all())
+
+
+def test_refs_and_blobs_through_the_schedules(dev):
+    """The sorted (N=30) and compact (N=48) schedules with per-lane blobs
+    and profiles, kernel passes against plain passes, at the gates (the
+    compact rule for compact)."""
+    from mpc_ros_tpu_torch.models.obstacles import GaussianObstacles
+    from mpc_ros_tpu_torch.testing import numpy_blobs, numpy_refs
+
+    B = 2048
+    for cfg, compact in (
+            (dataclasses.replace(PROD, schedule="sorted", presolve_iters=3),
+             False), (LONG, True)):
+        z0s, coeffs = _scen(dev, B, seed=9)
+        ins = lane_inputs(z0s, coeffs, MPCParams().astype(torch.float32,
+                                                          dev), cfg)
+        t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+        blobs = GaussianObstacles.from_sigmas(
+            *(t(a) for a in numpy_blobs(9, B))).lane()
+        refs = t(numpy_refs(9, B, cfg.n_steps)).permute(1, 2, 0).contiguous()
+        before = (solve_mega.launches, solve_mega.passes)
+        k = solve_mega.solve_mega_scheduled(*ins, cfg, blobs=blobs,
+                                            refs=refs)
+        assert (solve_mega.launches - before[0],
+                solve_mega.passes - before[1]) == (2, 2)
+        p = solve_mega.solve_mega_scheduled(*ins, cfg, plain=True,
+                                            blobs=blobs, refs=refs)
+        torch.cuda.synchronize()
+        g = parity_gates(k[1].permute(2, 0, 1).cpu(), k[2].cpu(),
+                         k[3].cpu(), k[4].cpu(), p[1].permute(2, 0, 1).cpu(),
+                         p[2].cpu(), p[3].cpu(), p[4].cpu(), cfg.n_steps,
+                         compact=compact)
+        assert g["ok"], g

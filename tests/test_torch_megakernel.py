@@ -119,7 +119,7 @@ def test_lockstep_selects_the_per_tile_variant():
     kn = solve_mega.resolve_knobs(SolverConfig(n_steps=8), torch.float32)
     lock = dataclasses.replace(kn, lockstep=True)
     assert (kn.tile_exit, lock.tile_exit) == (False, True)
-    assert lock.variant == kn.variant[:4] + (True,)
+    assert lock.variant == kn.variant[:4] + (True,) + kn.variant[5:]
     assert lock.n_done_needed == kn.n_done_needed == solve_mega.TILE
 
 
@@ -148,8 +148,15 @@ def test_parity_gates_lanes_limit_the_numerics_only():
     assert g["compared_frac"] == (n - 2) / n
 
 
-@pytest.mark.parametrize("kw", [dict(model="bicycle")], ids=["bicycle"])
-def test_unported_kernel_options_raise(kw):
+@pytest.mark.parametrize("kw,extra,match", [
+    (dict(model="tricycle"), {}, "families"),
+    ({}, dict(blobs=(torch.zeros(2, 128),) * 3), "cx, cy, gamma, w"),
+    ({}, dict(refs=torch.zeros(7, 3, 128)), "refs: expected shape"),
+], ids=["unknown_model", "blobs_arity", "refs_shape"])
+def test_unported_kernel_options_raise(kw, extra, match):
+    """The kernel covers both families, blobs and setpoints; what it does
+    not take raises before anything runs: another family, blobs that are
+    not the four (cx, cy, gamma, w) arrays, a profile not (T+1, 3, B)."""
     cfg = SolverConfig(n_steps=8, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve_mega.solve_mega(*_cpu_inputs(), cfg)
+    with pytest.raises(ValueError, match=match):
+        solve_mega.solve_mega(*_cpu_inputs(), cfg, **extra)

@@ -79,8 +79,14 @@ def test_kernel_sources_ship_with_the_package():
 
     src = (csrc / "solve_mega.cu").read_text()
     assert f"constexpr int kTile = {solve_mega.TILE};" in src
-    assert "-DMEGA_TILE_EXIT=1" in _build.KERNELS["solve_mega"].flags(
-        (4, True, True, True, True))
+    flags = _build.KERNELS["solve_mega"].flags
+    assert "-DMEGA_TILE_EXIT=1" in flags(
+        (4, True, True, True, True, False, False, False))
+    # the last three flags select the blobs, setpoint and bicycle variants
+    assert {"-DMEGA_BLOBS=1", "-DMEGA_SETP=0", "-DMEGA_BICYCLE=1"} <= set(
+        flags((4, True, True, True, False, True, False, True)))
+    for macro in ("MEGA_BLOBS", "MEGA_SETP", "MEGA_BICYCLE"):
+        assert f"#define {macro} 0" in src, macro
     # a build's name carries the kernel, the variant and the source hash
     p = _build.lib_path("forward", (8,))
     assert p.name.startswith("forward_8_") and p.parent == _build.BUILD_DIR
