@@ -82,23 +82,34 @@ them and never falls back to the CPU. Phases, one output line each:
     with per-lane blobs and profiles, each against the same schedule on
     the plain version, compaction observed engaged.
 
-Then a JSON line describing each kernel (launches on the main path, error
-against the plain version, times, the bound on this card) and, last, the
-device JSON line. Every phase raises on failure; nothing is caught.
+Every timed window of the whole-solve kernel (phases 4, 5, 10-12, 16,
+18, 19) reports the median, min and max of WINDOW launches, the SM clock
+and power draw sampled before and after, and the bytes the kernel's design
+moves in that call (`solve_mega.scratch_bytes`, the re-roll charged to the
+accepted steps alone, which `accepted_steps` counts) with the rate achieved;
+the build phase reports each variant's registers, spills, shared memory
+and resident blocks per SM. Then a JSON line describing each kernel
+(launches on the main path, error against the plain version, times, the
+bound on this card) and, last, the device JSON line. Every phase raises on
+failure; nothing is caught.
 
     python3 chip_smoke.py --survey 16,26,36,46
 
 runs phase 9 alone at B=131,072 on the seeds given and records each
 comparison without stopping at a broken gate; for a broken one it traces
-the lanes the gate points at (where the two sides part, and how far each
-lies from a float64 solve). It exits 1 if any gate broke, and prints no
-device line.
+the lanes the gate points at (where the two sides part, both sides' line
+searches at that iteration from the kernel's diagnostic output, and how
+far each lies from a float64 solve). Then, per seed, the obstacle main
+path (phase 16's shape) on both sides: its acceptance ties counted, each
+tied lane's two answers costed in float64, the first traced through pass
+1. It exits 1 if any gate broke, and prints no device line.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -171,22 +182,26 @@ F32_FLOP_PER_S = 67e12
 # nine-combo enumeration ~180): the fused backward ~1,210 per stage; the
 # line search ~100 per candidate and stage plus ~125 per stage of the
 # winner re-roll; the whole-solve kernel per SQP iteration and stage
-# ~1,020 in the backward (row 4 skipped, no trig), ~110 per line-search
-# candidate (rotation-composition trig) and ~140 in the re-roll.
+# ~1,020 in the backward (row 4 skipped, no trig) and ~110 per line-search
+# candidate (rotation-composition trig), and per stage of an accepted
+# step's re-roll ~60: a replayed rollout step, the dynamics 22, the
+# rotation composition 32, se and ce 6 (no feedback, clamp or blend).
 FLOP_BWD_STAGE = 1210
 FLOP_FWD_CAND_STAGE = 100
 FLOP_FWD_REROLL_STAGE = 125
-FLOP_MEGA_STAGE = (1020, 110, 140)
+FLOP_MEGA_STAGE = (1020, 110, 60)
 # K1 stages (e) and (g), counted the same way: per blob, ~10 operations
 # for its penalty (one per line-search candidate and knot) and ~27 for its
 # gradient and curvature in the backward (+6 for the gated concave part
 # under DDP), +5 to fold them into the expansion; the bicycle adds ~47
-# per backward stage (the a23/b20 terms, the DDP cross term) and ~7 per
-# rollout step (the heading increment and the double-angle trig).
+# per backward stage (the a23/b20 terms, the DDP cross term) and 10 per
+# rollout step, a candidate's or the re-roll's (v / lf in the heading
+# increment and in the trig step's angle, 4; the half angle and the
+# double-angle step, 6).
 FLOP_BLOB_VAL = 10
 FLOP_BLOB_TERMS = 27
 FLOP_BLOB_GATE = 6
-FLOP_BICYCLE_STAGE = (47, 7, 7)
+FLOP_BICYCLE_STAGE = (47, 10, 10)
 # the card's name and power limit as nvidia-smi gives them, read in main()
 CARD = ""
 
@@ -404,11 +419,8 @@ def main_path(dev, phase: str = "main_path", cfg=PROD, seed: int = 1,
 
     ins = lane_inputs(z0s, coeffs, p, cfg)
     refs_l = None if refs is None else lane_major(refs)
-    kernel_ms = cuda_ms(lambda: solve_mega.solve_mega_cuda(
-        *ins, cfg, refs=refs_l), reps)
-    bound = mega_bound(ins, solve_mega.solve_mega_cuda(*ins, cfg,
-                                                       refs=refs_l),
-                       cfg, res.n_iters, refs=refs_l)
+    _, win, bound, _ = timed_launch(ins, cfg, refs=refs_l)
+    kernel_ms = win["median_ms"]
     # the kernel against its plain version at the main path's shape
     vs_plain, _, plain_s, _, _ = held_against_plain(ins, cfg, phase,
                                                     refs=refs_l)
@@ -420,7 +432,7 @@ def main_path(dev, phase: str = "main_path", cfg=PROD, seed: int = 1,
                converged_frac=conv, mean_iters=iters,
                max_iters=int(res.n_iters.max()),
                mean_warp_max_iters=warp_max_iters(res.n_iters),
-               launches=launches, vs_plain=vs_plain)
+               launches=launches, window=win, vs_plain=vs_plain)
     emit(phase, **out)
     return out
 
@@ -449,9 +461,10 @@ def serving(dev) -> dict:
     # the plant state after cycle 0 and cycle 0's solution shifted by one
     us0 = batch_solve_lane(z0s, coeffs, p, PROD).us
     warm = torch.cat([us0[:, 1:], us0[:, -1:]], dim=1)
-    vs_plain = held_against_plain(
-        lane_inputs(tr.zs[1], coeffs, p, PROD, u_init=warm), PROD,
-        "serving, warm start")[0]
+    ins = lane_inputs(tr.zs[1], coeffs, p, PROD, u_init=warm)
+    vs_plain = held_against_plain(ins, PROD, "serving, warm start")[0]
+    # the kernel's window on that warm-started cycle
+    _, win, bound, _ = timed_launch(ins, PROD)
     out = dict(robots=B_SERVE, cycles=N_CYCLES,
                control_cycles_per_s=B_SERVE * N_CYCLES / wall,
                ms_per_cycle=wall / N_CYCLES * 1e3,
@@ -459,7 +472,9 @@ def serving(dev) -> dict:
                mean_warm_iters=float(tr.iters[1:].float().mean()),
                cold_iters=float(tr.iters[0].float().mean()),
                converged_frac=float(tr.converged.float().mean()),
-               launches=launches, vs_plain=vs_plain)
+               launches=launches, warm_cycle_kernel=dict(
+                   window=win, bound_ms=bound[0], bound_by=bound[1]),
+               vs_plain=vs_plain)
     emit("serving", **out)
     return out
 
@@ -475,52 +490,137 @@ def bound_ms(tensors, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def mega_flops_per_iter(cfg, n_blobs: int = 0) -> float:
-    """Counted operations of one SQP iteration of one scenario: T stages
-    of the backward, the n_ls candidates and the re-roll, with the blob
-    terms at every knot and the bicycle's heading rows."""
+def mega_flops(cfg, lane_iters: float, accepted: float,
+               n_blobs: int = 0) -> float:
+    """Counted operations of a call whose lanes ran `lane_iters` SQP
+    iterations, `accepted` of them with an accepted step: per
+    lane-iteration T stages of the backward and of the n_ls candidates,
+    with the blob terms at every knot and the bicycle's heading rows; per
+    accepted step T stages of the re-roll, which a rejected step skips."""
     T = cfg.n_controls
     n_ls = cfg.ls_for(torch.float32)
     bwd, cand, reroll = FLOP_MEGA_STAGE
     if cfg.model == "bicycle":
         bwd, cand, reroll = (a + b for a, b in zip(
             (bwd, cand, reroll), FLOP_BICYCLE_STAGE))
-    ops = T * (bwd + n_ls * cand + reroll)
+    ops = T * (bwd + n_ls * cand)
     if n_blobs:
         terms = FLOP_BLOB_TERMS + (FLOP_BLOB_GATE
                                    if cfg.ddp_for(torch.float32) else 0)
         ops += (T + 1) * (n_blobs * (terms + n_ls * FLOP_BLOB_VAL) + 5)
-    return float(ops)
+    return float(ops * lane_iters + T * reroll * accepted)
 
 
-def mega_bound(ins, outs, cfg, iters, resume=None, blobs=None,
+def accepted_steps(ins, cfg, iters, resume=None, blobs=None,
+                   refs=None) -> int:
+    """The lane-iterations of one call whose step the line search
+    accepted (those the re-roll runs on): the call relaunched with its cap
+    cut to m = 1, 2, ... (a lane's first m iterations do not depend on the
+    cap, nor does a tile's exit), each launch's line-search diagnostic
+    read on the lanes that ran iteration m. These launches are made after
+    a phase's counts are read and count on no main path."""
+    n_ls = cfg.ls_for(torch.float32)
+    diag = torch.zeros(n_ls + 2, ins[0].shape[-1], device=ins[0].device)
+    n = torch.zeros((), dtype=torch.int64, device=ins[0].device)
+    for m in range(1, int(iters.max()) + 1):
+        out = solve_mega.solve_mega_cuda(
+            *ins, dataclasses.replace(cfg, max_sqp_iters=m), resume=resume,
+            blobs=blobs, refs=refs, diag=diag)
+        n += ((out[4] == m) & (diag[n_ls + 1] > 0)).sum()
+    return int(n)
+
+
+def mega_bound(ins, outs, cfg, accepted: float, resume=None, blobs=None,
                refs=None) -> tuple:
     """The whole-solve kernel's bound on one call: its inputs (the resume
     state's 16 bytes per lane, the blobs and the setpoint profile
     included) and outputs, and the operations of the SQP iterations these
-    lanes ran."""
+    lanes ran (`mega_flops`)."""
     n_blobs = 0 if blobs is None else blobs[0].shape[0]
     extra = list(resume or ()) + list(blobs or ()) + (
         [] if refs is None else [refs])
     return bound_ms(list(ins) + extra + list(outs),
-                    mega_flops_per_iter(cfg, n_blobs)
-                    * float(iters.double().sum()))
+                    mega_flops(cfg, float(outs[4].double().sum()), accepted,
+                               n_blobs))
 
 
 def timed_launch(ins, cfg, resume=None, blobs=None, refs=None):
-    """One call of the kernel's wrapper `solve_mega_cuda`, timed on the
-    device by CUDA events recorded just before and after it: (outputs, ms,
-    bound (ms, which), mean per-warp maximum of iterations)."""
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    outs = solve_mega.solve_mega_cuda(*ins, cfg, resume=resume, blobs=blobs,
-                                      refs=refs)
-    stop.record()
-    torch.cuda.synchronize()
-    return (outs, start.elapsed_time(stop),
-            mega_bound(ins, outs, cfg, outs[4], resume, blobs, refs),
+    """The kernel's wrapper `solve_mega_cuda` on one set of inputs, timed
+    over a window of launches (`device_window`), with the traffic its
+    design moves at that time (`k1_traffic`): (outputs, window, bound (ms,
+    which), mean per-warp maximum of iterations)."""
+    def call():
+        return solve_mega.solve_mega_cuda(*ins, cfg, resume=resume,
+                                          blobs=blobs, refs=refs)
+
+    outs = call()
+    win = device_window(call)
+    acc = accepted_steps(ins, cfg, outs[4], resume, blobs, refs)
+    n_blobs = 0 if blobs is None else blobs[0].shape[0]
+    win.update(k1_traffic(cfg, outs[4], acc, win["median_ms"], n_blobs,
+                          refs is not None))
+    return (outs, win,
+            mega_bound(ins, outs, cfg, acc, resume, blobs, refs),
             warp_max_iters(outs[4]))
+
+
+def k1_traffic(cfg, iters, accepted: int, ms: float, n_blobs: int = 0,
+               setp: bool = False) -> dict:
+    """The bytes the whole-solve kernel's design moves through device
+    memory on a call whose lanes ran `iters` SQP iterations, `accepted` of
+    them with an accepted step (`solve_mega.scratch_bytes`, the re-roll on
+    those only), for this design and the double-buffered one it replaced
+    (which re-rolled every lane-iteration), and the rate achieved at
+    `ms`."""
+    T, n_ls = cfg.n_controls, cfg.ls_for(torch.float32)
+    lane_iters = float(iters.double().sum())
+    out = {"lane_iterations": lane_iters, "accepted_steps": accepted}
+    for layout in solve_mega.LAYOUTS:
+        rej, acc = (solve_mega.scratch_bytes(T, n_ls, layout, n_blobs, setp,
+                                             a) for a in (False, True))
+        nbytes = rej * (lane_iters - accepted) + acc * accepted
+        out[f"{layout}_bytes_per_lane_iteration"] = nbytes / max(lane_iters,
+                                                                 1.0)
+        out[f"{layout}_gb"] = nbytes / 1e9
+    out["achieved_tb_per_s"] = out["replay_gb"] / ms
+    out["hbm_share"] = out["achieved_tb_per_s"] * 1e12 / HBM_BYTES_PER_S
+    return out
+
+
+# launches per timed window of the whole-solve kernel
+WINDOW = 5
+
+
+def gpu_sample() -> dict:
+    """The card's SM clock (MHz) and power draw (W) now."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    sm, pw = out.stdout.strip().splitlines()[0].split(",")
+    return {"sm_mhz": float(sm), "power_w": float(pw)}
+
+
+def device_window(fn, reps: int = WINDOW) -> dict:
+    """Device time of `fn` per call: one untimed call, then `reps` calls,
+    each between two CUDA events; the median, min and max in ms, and the SM
+    clock and power draw sampled just before and just after the window."""
+    fn()
+    torch.cuda.synchronize()
+    before = gpu_sample()
+    evs = [(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for a, b in evs:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    after = gpu_sample()
+    ms = sorted(a.elapsed_time(b) for a, b in evs)
+    return {"median_ms": statistics.median(ms), "min_ms": ms[0],
+            "max_ms": ms[-1], "launches": reps,
+            "sm_mhz": [before["sm_mhz"], after["sm_mhz"]],
+            "power_w": [before["power_w"], after["power_w"]]}
 
 
 def compact_passes(ins, cfg, blobs=None, refs=None) -> list:
@@ -528,35 +628,22 @@ def compact_passes(ins, cfg, blobs=None, refs=None) -> list:
     schedule's own functions (`compact_pass1_cfg`, `compact_tail`), each
     timed by `timed_launch`: [{lanes, kernel_ms, bound_ms, bound_by,
     mean_warp_max_iters}] for pass 1 and the tail."""
-    out1, ms1, b1, wm1 = timed_launch(ins, solve_mega.compact_pass1_cfg(cfg),
-                                      blobs=blobs, refs=refs)
+    out1, w1, b1, wm1 = timed_launch(ins, solve_mega.compact_pass1_cfg(cfg),
+                                     blobs=blobs, refs=refs)
     tail = solve_mega.compact_tail(ins, out1, cfg, blobs, refs)
-    _, ms2, b2, wm2 = timed_launch(tail.ins, tail.cfg, tail.resume,
-                                   tail.blobs, tail.refs)
-    return [{"lanes": int(a[0].shape[-1]), "kernel_ms": ms, "bound_ms": b[0],
-             "bound_by": b[1], "mean_warp_max_iters": wm}
-            for a, ms, b, wm in ((ins, ms1, b1, wm1),
-                                 (tail.ins, ms2, b2, wm2))]
+    _, w2, b2, wm2 = timed_launch(tail.ins, tail.cfg, tail.resume,
+                                  tail.blobs, tail.refs)
+    return [{"lanes": int(a[0].shape[-1]), "kernel_ms": w["median_ms"],
+             "bound_ms": b[0], "bound_by": b[1], "mean_warp_max_iters": wm,
+             "window": w}
+            for a, w, b, wm in ((ins, w1, b1, wm1),
+                                (tail.ins, w2, b2, wm2))]
 
 
 def warp_max_iters(iters) -> float:
     """The mean over 32-lane warps of the warp's largest iteration count:
     the iterations a warp pays under the per-thread exit."""
     return float(iters.reshape(-1, 32).max(dim=1).values.float().mean())
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of `fn` over `reps` back-to-back calls (CUDA
-    events, after one untimed call)."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
 
 
 def host_s(fn):
@@ -758,10 +845,12 @@ def route_main_path(dev, plain_route_s: float) -> dict:
 
     sqp = LaneSQP(z0s, coeffs, p, ROUTE, two_kernel=two_kernel_stages())
     bi = sqp.backward_inputs()
-    bwd_ms = cuda_ms(lambda: backward_fused.backward_fused_cuda(*bi), 10)
+    bwd_ms = device_window(
+        lambda: backward_fused.backward_fused_cuda(*bi))["median_ms"]
     bk = backward_fused.backward_fused_cuda(*bi)
     fi = sqp.forward_inputs(bk[0], bk[1])
-    fwd_ms = cuda_ms(lambda: forward.forward_cuda(*fi, n_alpha=N_ALPHA), 10)
+    fwd_ms = device_window(
+        lambda: forward.forward_cuda(*fi, n_alpha=N_ALPHA))["median_ms"]
     fk = forward.forward_cuda(*fi, n_alpha=N_ALPHA)
     T = ROUTE.n_controls
     bwd_bound = bound_ms(list(bi) + list(bk), FLOP_BWD_STAGE * T * B_MAIN)
@@ -987,58 +1076,161 @@ def suspects(rec, out_k, out_p, cap: int) -> list:
     return lanes[:WITNESSES]
 
 
-def witness(ins, cfg, resume, out_k, out_p, lane: int) -> dict:
-    """Where one lane parts between the kernel and its plain version, and
-    how far each side's answer lies from float64. The lane's tile alone
+def line_search_record(diag, i: int, n_ls: int) -> dict:
+    """Lane i's line search from a diagnostic output (`check_diag`): the
+    cost before the step, the alpha chosen, and each candidate's margin
+    (cost before - candidate cost) / (1 + |cost before|); a candidate
+    lowers the cost where its margin is > 0."""
+    d = diag[:, i].double().cpu()
+    before = float(d[n_ls])
+    return {"cost_before": before, "alpha": float(d[n_ls + 1]),
+            "candidate_costs": d[:n_ls].tolist(),
+            "margins": ((before - d[:n_ls]) / (1.0 + abs(before))).tolist()}
+
+
+def parting_verdict(kd: dict, pd: dict) -> str:
+    """What decided a parting, from both sides' line searches at the cap
+    where the lane parts: "acceptance tie" when the sides chose different
+    alphas and every candidate whose acceptance differs lies within TIE_REL
+    of the cost before on both sides; "acceptance differs" when such a
+    candidate lies further out (a kernel path that differs); "same alpha"
+    when the line search agreed, so another rounding-level decision parted
+    the lane (a box-QP clamp, the convergence or stall test)."""
+    if kd["alpha"] == pd["alpha"]:
+        return "same alpha"
+    differ = [j for j, (a, b) in enumerate(zip(kd["margins"], pd["margins"]))
+              if (a > 0) != (b > 0)]
+    wide = [j for j in differ
+            if max(abs(kd["margins"][j]), abs(pd["margins"][j])) > TIE_REL]
+    return "acceptance differs" if wide else "acceptance tie"
+
+
+def witness(ins, cfg, resume, out_k, out_p, lane: int, blobs=None) -> dict:
+    """Where one lane parts between the kernel and its plain version, why,
+    and how far each side's answer lies from float64. The lane's tile alone
     (its exit depends on no other lane) runs on both sides with the
     iteration cap at 1, 2, ... up to the lane's count: per cap the lane's
     |du| and each side's (cost, mu, conv, done), and the first cap after
-    which |du| > PARTED_DU. Then the plain version solves the tile in
-    float64 with the knobs float32 resolves: each side's |du| and relative
-    cost from that solve."""
+    which |du| > PARTED_DU. At that cap both sides' line searches are read
+    from the diagnostic output (`line_search_record`) and the parting is
+    classified (`parting_verdict`). Then the plain version solves the tile
+    in float64 with the knobs float32 resolves: each side's |du| and
+    relative cost from that solve, and whether float64's cost lies between
+    the sides or beside them."""
     tile = solve_mega.TILE
     t0 = lane // tile * tile
     i = lane - t0
     sub = [a[..., t0:t0 + tile] for a in ins]
     res = None if resume is None else [r[t0:t0 + tile] for r in resume]
+    bl = None if blobs is None else [b[..., t0:t0 + tile] for b in blobs]
     n_it = int(max(out_k[4][lane], out_p[4][lane]))
-    trace, parted = [], None
+    n_ls = cfg.ls_for(torch.float32)
+    trace, parted, at_part = [], None, None
 
     def state(o):
         return [float(o[q][i]) for q in (2, 6, 3, 7)]
 
     for j in range(1, n_it + 1):
         cj = dataclasses.replace(cfg, max_sqp_iters=j)
-        k = solve_mega.solve_mega_cuda(*sub, cj, resume=res)
-        p = solve_mega.solve_mega_plain(*sub, cj, resume=res)
+        dk, dp = (torch.full((n_ls + 2, tile), float("nan"),
+                             device=sub[0].device) for _ in range(2))
+        k = solve_mega.solve_mega_cuda(*sub, cj, resume=res, blobs=bl,
+                                       diag=dk)
+        p = solve_mega.solve_mega_plain(*sub, cj, resume=res, blobs=bl,
+                                        diag=dp)
         du = float((k[1][..., i] - p[1][..., i]).abs().max())
         trace.append({"cap": j, "du": du, "kernel": state(k),
                       "plain": state(p)})
         if parted is None and du > PARTED_DU:
             parted = j
+            kd = line_search_record(dk, i, n_ls)
+            pd = line_search_record(dp, i, n_ls)
+            at_part = {"kernel": kd, "plain": pd,
+                       "verdict": parting_verdict(kd, pd)}
     f32, f64 = torch.float32, torch.float64
+    obs = bl is not None
     c64 = dataclasses.replace(
-        cfg, ddp=True, ddp_gate=cfg.gate_for(False, f32),
-        mu_init=cfg.mu_init_for(f32), ls_iters=cfg.ls_for(f32),
+        cfg, ddp=cfg.ddp_for(f32), ddp_gate=cfg.gate_for(obs, f32),
+        mu_init=cfg.mu_init_for(f32, obs), ls_iters=cfg.ls_for(f32),
         tol_cost=10.0 * float(torch.finfo(f32).eps))
     o64 = solve_mega.solve_mega_plain(
         *[a.to(f64) for a in sub], c64,
-        resume=None if res is None else [r.to(f64) for r in res])
+        resume=None if res is None else [r.to(f64) for r in res],
+        blobs=None if bl is None else [b.to(f64) for b in bl])
     us64, cost64 = o64[1][..., i], float(o64[2][i])
 
     def from64(o):
         return [float((o[1][..., lane].double() - us64).abs().max()),
                 abs(float(o[2][lane]) - cost64) / (1.0 + abs(cost64))]
 
+    ck, cp = float(out_k[2][lane]), float(out_p[2][lane])
     return {"lane": lane, "tile": lane // tile,
             "iters": [float(out_k[4][lane]), float(out_p[4][lane])],
             "du": float((out_k[1][..., lane] - out_p[1][..., lane]).abs()
                         .max()),
-            "parted_at_cap": parted, "trace": trace,
+            "parted_at_cap": parted, "line_search_at_part": at_part,
+            "trace": trace,
             "f64": {"cost": cost64, "iters": float(o64[4][i]),
-                    "conv": float(o64[3][i])},
+                    "conv": float(o64[3][i]),
+                    "between_sides": min(ck, cp) <= cost64 <= max(ck, cp)},
             "kernel_du_rel_dcost_from_f64": from64(out_k),
             "plain_du_rel_dcost_from_f64": from64(out_p)}
+
+
+# the tied lanes per seed that the obstacle survey traces through pass 1
+OBSTACLE_WITNESSES = 2
+
+
+def cost64_of(ins, cfg, us, lanes, blobs=None) -> list:
+    """The float64 cost of the given lanes' controls `us` (T, 2, B): the
+    plain version's initial rollout with no SQP iteration, in float64."""
+    idx = torch.tensor(lanes, device=us.device)
+    f64 = torch.float64
+
+    def tk(a):
+        return a.index_select(-1, idx).to(f64)
+
+    c0 = dataclasses.replace(cfg, max_sqp_iters=0, schedule="single",
+                             done_frac=1.0)
+    out = solve_mega.solve_mega_plain(
+        *[tk(a) for a in ins[:5]], tk(us), c0,
+        blobs=None if blobs is None else tuple(tk(b) for b in blobs))
+    return out[2].tolist()
+
+
+def obstacle_ties(dev, seed: int) -> dict:
+    """The obstacle main path (as phase 16: N=30, B=524,288, K=4, cap 30,
+    compact) on the kernel and on the plain version: the acceptance ties
+    (`acceptance_ties`) counted, and for each tied lane the float64 cost of
+    both sides' controls (`cost64_of`) — equally good answers agree there
+    to rounding."""
+    blobs = blob_field(seed, B_MAIN, K_MAIN, dev).lane()
+    z0s, coeffs = scenarios(seed, B_MAIN, dev)
+    ins = lane_inputs(z0s, coeffs, params(B_MAIN, dev, False), OBST)
+    out_k = solve_mega.solve_mega_scheduled(*ins, OBST, blobs=blobs)
+    out_p = solve_mega.solve_mega_scheduled(*ins, OBST, plain=True,
+                                            blobs=blobs)
+    g = outputs_gates(out_k, out_p, OBST.n_steps, compact=True, ties=True)
+    tie = acceptance_ties(out_k, out_p, g["limits"]["max_du"])
+    lanes = torch.nonzero(tie).flatten().tolist()
+    recs = []
+    if lanes:
+        ck = cost64_of(ins, OBST, out_k[1], lanes, blobs)
+        cp = cost64_of(ins, OBST, out_p[1], lanes, blobs)
+        pass1 = solve_mega.compact_pass1_cfg(OBST)
+        out1 = [solve_mega.solve_mega_cuda(*ins, pass1, blobs=blobs),
+                solve_mega.solve_mega_plain(*ins, pass1, blobs=blobs)]
+        for n, (lane, a, b) in enumerate(zip(lanes, ck, cp)):
+            rec = {**lane_record(out_k, out_p, lane), "cost64": [a, b],
+                   "rel_dcost64": abs(a - b) / (1.0 + abs(b))}
+            if n < OBSTACLE_WITNESSES:
+                # the lane's tile through pass 1 (the per-block exit)
+                rec["pass1_witness"] = witness(ins, pass1, None, *out1,
+                                               lane, blobs)
+            recs.append(rec)
+    return {"seed": seed, "batch": B_MAIN, "ties": len(lanes),
+            "tie_frac": len(lanes) / B_MAIN, "ok": g["ok"],
+            "max_du": g["max_du"], "tied_lanes": recs}
 
 
 def survey(dev, seeds) -> None:
@@ -1057,6 +1249,11 @@ def survey(dev, seeds) -> None:
                     for lane in suspects(rec, out_k, out_p,
                                          cfg.max_sqp_iters)]
             emit("survey", variant=variant, seed=seed, **rec)
+    for seed in seeds:
+        rec = obstacle_ties(dev, seed)
+        emit("survey_obstacle_ties", **rec)
+        if not rec["ok"]:
+            broke.append((seed, "obstacles"))
     emit("survey_verdict", seeds=list(seeds), broken=broke)
     if broke:
         raise SystemExit(1)
@@ -1134,18 +1331,19 @@ def passes_total(passes, lanes) -> tuple:
             (sum(c["bound_ms"] for c in passes), worst["bound_by"]))
 
 
-def lockstep_ms(ins, reps: int):
+def lockstep_window(ins):
     """The per-block (lockstep) variant at n_done_needed = TILE, which
-    computes what the per-thread variant does: its device time, and
-    whether its outputs equal the per-thread variant's."""
+    computes what the per-thread variant does: its device window
+    (`device_window`), and whether its outputs equal the per-thread
+    variant's."""
     single = dataclasses.replace(LONG, schedule="single")
-    ms = cuda_ms(lambda: solve_mega.solve_mega_cuda(*ins, single,
-                                                    lockstep=True), reps)
+    win = device_window(lambda: solve_mega.solve_mega_cuda(
+        *ins, single, lockstep=True))
     lock = solve_mega.solve_mega_cuda(*ins, single, lockstep=True)
     thread = solve_mega.solve_mega_cuda(*ins, single)
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(lock, thread))
-    return ms, same
+    return win, same
 
 
 def long_main_path(dev) -> dict:
@@ -1154,25 +1352,21 @@ def long_main_path(dev) -> dict:
     run = compact_run(dev, LONG, B_LONG, 7, reps)
     out = run["out"]
     ins = lane_inputs(run["z0s"], run["coeffs"], run["p"], LONG)
-    out["device_ms_per_solve"] = cuda_ms(
-        lambda: solve_mega.solve_mega_scheduled(*ins, LONG), reps)
+    out["device_per_solve"] = device_window(
+        lambda: solve_mega.solve_mega_scheduled(*ins, LONG))
     passes = out["passes"] = compact_passes(ins, LONG)
     kernel_ms, bound = passes_total(passes, [B_LONG, out["n_tail"]])
     # the single pass at the same shape
     single = dataclasses.replace(LONG, schedule="single")
-    out_s = solve_mega.solve_mega_cuda(*ins, single)
-    torch.cuda.synchronize()
-    single_ms = cuda_ms(lambda: solve_mega.solve_mega_cuda(*ins, single),
-                        reps)
-    sb = mega_bound(ins, out_s, single, out_s[4])
+    out_s, win, sb, wm = timed_launch(ins, single)
+    single_ms = win["median_ms"]
     out["single_pass"] = dict(
         kernel_ms=single_ms, solves_per_s=B_LONG / (single_ms / 1e3),
         bound_ms=sb[0], bound_by=sb[1],
         converged_frac=float((out_s[3] > 0.5).float().mean()),
         mean_iters=float(out_s[4].mean()), max_iters=int(out_s[4].max()),
-        mean_warp_max_iters=warp_max_iters(out_s[4]))
-    lock_ms, same = lockstep_ms(ins, reps)
-    out["lockstep_per_block_ms"] = lock_ms
+        mean_warp_max_iters=wm, window=win)
+    out["lockstep_per_block"], same = lockstep_window(ins)
     out["lockstep_equals_per_thread"] = same
     if not same:
         raise SystemExit("the per-block loop at n_done_needed = 128 differs "
@@ -1190,8 +1384,11 @@ def longest_path(dev) -> dict:
     run = compact_run(dev, LONGEST, B_LONGEST, 10, 2)
     out = run["out"]
     ins = lane_inputs(run["z0s"], run["coeffs"], run["p"], LONGEST)
+    passes = out["passes"] = compact_passes(ins, LONGEST)
+    kernel_ms, bound = passes_total(passes, [B_LONGEST, out["n_tail"]])
     g, plain_s = schedule_against_plain(ins, LONGEST, "N=100", compact=True)
-    out.update(plain_s=plain_s, vs_plain=g)
+    out.update(kernel_ms=kernel_ms, bound_ms=bound[0], bound_by=bound[1],
+               plain_s=plain_s, vs_plain=g)
     emit("longest_path", **out)
     return out
 
@@ -1202,7 +1399,7 @@ def sorted_schedule(dev) -> dict:
     against the plain sorted schedule on the same inputs at the
     single-pass gates (at done_frac = 1 a lane's result does not depend on
     the tile the sort puts it in)."""
-    B, reps = B_LONG, 3
+    B = B_LONG
     z0s, coeffs = scenarios(11, B, dev)
     p = params(B, dev, False)
     single = dataclasses.replace(PROD, schedule="single")
@@ -1215,16 +1412,17 @@ def sorted_schedule(dev) -> dict:
     counts = (solve_mega.launches, solve_mega.passes)
     if counts != (2, 2):
         raise SystemExit(f"sorted ran {counts} launches/passes, not 2")
-    ms1 = cuda_ms(lambda: solve_mega.solve_mega_scheduled(*ins, single),
-                  reps)
-    ms2 = cuda_ms(lambda: solve_mega.solve_mega_scheduled(*ins, srt), reps)
+    w1 = device_window(lambda: solve_mega.solve_mega_scheduled(*ins, single))
+    w2 = device_window(lambda: solve_mega.solve_mega_scheduled(*ins, srt))
+    ms1, ms2 = w1["median_ms"], w2["median_ms"]
     f1 = float(res1.converged.float().mean())
     f2 = float(res2.converged.float().mean())
     both = res1.converged & res2.converged
     du = float((res1.us - res2.us).abs().amax(dim=(1, 2))[both].max())
     dc = float(((res1.cost - res2.cost).abs()
                 / res1.cost.abs().clamp(min=1.0))[both].max())
-    out = dict(batch=B, single_ms=ms1, sorted_ms=ms2,
+    out = dict(batch=B, single_ms=ms1, sorted_ms=ms2, single_window=w1,
+               sorted_window=w2,
                single_solves_per_s=B / (ms1 / 1e3),
                sorted_solves_per_s=B / (ms2 / 1e3), conv_single=f1,
                conv_sorted=f2, both_converged=float(both.float().mean()),
@@ -1373,8 +1571,8 @@ def obstacle_main_path(dev) -> dict:
     out = run["out"]
     ins = lane_inputs(run["z0s"], run["coeffs"], run["p"], OBST)
     bl = blobs.lane()
-    out["device_ms_per_solve"] = cuda_ms(
-        lambda: solve_mega.solve_mega_scheduled(*ins, OBST, blobs=bl), reps)
+    out["device_per_solve"] = device_window(
+        lambda: solve_mega.solve_mega_scheduled(*ins, OBST, blobs=bl))
     passes = out["passes"] = compact_passes(ins, OBST, blobs=bl)
     kernel_ms, bound = passes_total(passes, [B_MAIN, out["n_tail"]])
     g, plain_s = schedule_against_plain(ins, OBST, "obstacles, N=30",
@@ -1465,6 +1663,28 @@ def schedules_blobs_refs(dev) -> float:
     return worst
 
 
+def build_pairs(survey: bool = False) -> set:
+    """Every (kernel, variant) pair the phases launch (the survey's alone
+    with `survey`): the whole-solve kernel's variants, then the fused
+    backward and the line search."""
+    # (config, blobs per lane, setpoint profile)
+    cfgs = [(LONG, 0, False), (dataclasses.replace(LONG, done_frac=0.97), 0,
+                               False), (OBST, K_MAIN, False),
+            (solve_mega.compact_pass1_cfg(OBST), K_MAIN, False)]
+    if not survey:
+        cfgs += [(c, 0, False) for _, c, _ in variants()] + [
+            (ROUTE_MEGA, 0, False), (BICYCLE, 0, False), (PROD, 0, True),
+            (LONG, K_MAIN, True),
+            (solve_mega.compact_pass1_cfg(LONG), K_MAIN, True)] + [
+            (c, K_MAIN if bl else 0, rf) for _, c, bl, rf, _ in EFG_VARIANTS]
+    pairs = {("solve_mega", solve_mega.resolve_knobs(
+        cfg, torch.float32, n_blobs=k, has_setp=rf).variant)
+        for cfg, k, rf in cfgs}
+    if not survey:
+        pairs |= {("backward_fused", ()), ("forward", (N_ALPHA,))}
+    return pairs
+
+
 def main(argv) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none found")
@@ -1482,26 +1702,16 @@ def main(argv) -> None:
 
     # every kernel variant the phases launch, one nvcc each, all at once
     t0 = time.perf_counter()
-    # (config, blobs per lane, setpoint profile)
-    cfgs = [(LONG, 0, False), (dataclasses.replace(LONG, done_frac=0.97), 0,
-                               False)]
-    if seeds is None:
-        cfgs += [(c, 0, False) for _, c, _ in variants()] + [
-            (ROUTE_MEGA, 0, False), (BICYCLE, 0, False), (PROD, 0, True),
-            (OBST, K_MAIN, False),
-            (solve_mega.compact_pass1_cfg(OBST), K_MAIN, False),
-            (LONG, K_MAIN, True),
-            (solve_mega.compact_pass1_cfg(LONG), K_MAIN, True)] + [
-            (c, K_MAIN if bl else 0, rf) for _, c, bl, rf, _ in EFG_VARIANTS]
-    pairs = {("solve_mega", solve_mega.resolve_knobs(
-        cfg, torch.float32, n_blobs=k, has_setp=rf).variant)
-        for cfg, k, rf in cfgs}
-    if seeds is None:
-        pairs |= {("backward_fused", ()), ("forward", (N_ALPHA,))}
+    pairs = build_pairs(survey=seeds is not None)
     builds = _build.build_many(sorted(pairs))
     emit("build", seconds=time.perf_counter() - t0,
          variants={f"{k}{v}": {"seconds": s, "ptxas": lines}
                    for (k, v), (s, lines) in builds.items()})
+    # registers, local memory, the knot ring's shared memory and resident
+    # blocks per SM of each variant of the whole-solve kernel
+    emit("occupancy", variants={
+        str(v): solve_mega.occupancy(v)
+        for k, v in sorted(pairs) if k == "solve_mega"})
     if seeds is not None:
         survey(dev, seeds)
         return

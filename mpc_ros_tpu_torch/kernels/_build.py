@@ -3,8 +3,8 @@
 Each kernel source under `csrc/` is compiled with `nvcc` for sm_90a into
 a shared library with a plain C interface, loaded with `ctypes`. Builds go
 to `build/kernels/` at the repository root, named by the kernel, its
-variant and a hash of its own `.cu` file, the shared `tiles.cuh` and the
-flags, so an unchanged source is compiled once. A kernel may be a
+variant and a hash of its own `.cu` file, the shared headers (`COMMON`)
+and the flags, so an unchanged source is compiled once. A kernel may be a
 template: each build instantiates one variant of it (`Kernel.flags` turns
 the variant tuple into `-D` macros), and `build_many` compiles several
 (kernel, variant) pairs at once, one `nvcc` process each, all started
@@ -27,7 +27,7 @@ from pathlib import Path
 from typing import Callable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-COMMON = ("tiles.cuh",)
+COMMON = ("tiles.cuh", "async_copy.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -54,7 +54,9 @@ _MEGA_MACROS = ("TILE_EXIT", "BLOBS", "SETP", "BICYCLE")
 
 def _mega_flags(variant) -> list:
     n_ls, ddp, fast, adaptive, *flags = variant
-    return [f"-DMEGA_NLS={int(n_ls)}", f"-DMEGA_DDP={int(bool(ddp))}",
+    # no a*b + c contracted into an FMA: every product and sum rounds as
+    # in the plain version (solve_mega_plain), operation for operation
+    return ["-fmad=false", f"-DMEGA_NLS={int(n_ls)}", f"-DMEGA_DDP={int(bool(ddp))}",
             f"-DMEGA_FAST={int(bool(fast))}",
             f"-DMEGA_ADAPT={int(bool(adaptive))}"] + [
         f"-DMEGA_{m}={int(bool(f))}"

@@ -7,20 +7,20 @@
 // Design. One thread owns one scenario and runs its complete control-
 // limited SQP loop: the initial rollout, then per iteration the inline-
 // linearized Riccati backward scan (gated GN->DDP terms, exact 2-D box QP
-// per stage), n_ls parallel line-search rollouts, the masked winner
-// re-roll and the per-lane mu / convergence / stall bookkeeping. The
-// per-tile early exit of the TPU kernel becomes, at done_frac = 1, a
-// per-thread `while (it < max_iters && !done)`; that is exact, because a
-// done lane never updates, so its result does not depend on which lanes
-// share its tile. Under done_frac < 1 (template flag TILE_EXIT) a block of
-// kTile threads is one tile: its threads iterate in lockstep, a done
-// thread skips the body, and at the top of every iteration
-// `__syncthreads_count(done)` stops the whole block once n_done_needed of
-// its lanes are done. No thread leaves that loop on its own, so every
-// thread reaches every barrier. An optional resume state (done, conv, mu,
-// gnorm) replaces the cold start of the loop state, as the TPU kernel's
-// `has_resume` does; the schedules (solve_mega.py) run the sorted and
-// compact two-pass solves with it.
+// per stage), n_ls parallel line-search rollouts that record each
+// candidate's clamped controls, the winner's re-roll and the per-lane mu /
+// convergence / stall bookkeeping. The per-tile early exit of the TPU
+// kernel becomes, at done_frac = 1, a per-thread `while (it < max_iters &&
+// !done)`; that is exact, because a done lane never updates, so its result
+// does not depend on which lanes share its tile. Under done_frac < 1
+// (template flag TILE_EXIT) a block of kTile threads is one tile: its
+// threads iterate in lockstep, a done thread skips the body, and at the top
+// of every iteration `__syncthreads_count(done)` stops the whole block once
+// n_done_needed of its lanes are done. No thread leaves that loop on its
+// own, so every thread reaches every barrier. An optional resume state
+// (done, conv, mu, gnorm) replaces the cold start of the loop state, as the
+// TPU kernel's `has_resume` does; the schedules (solve_mega.py) run the
+// sorted and compact two-pass solves with it.
 //
 // Three more template flags carry the TPU kernel's remaining static
 // specializations. BLOBS adds Gaussian obstacles, sum_k w exp(-|d|^2 g),
@@ -35,46 +35,82 @@
 // 2 and 5 scale by v / lf, gated DDP adds the (v, delta) cross term to
 // Qus[0,3], and fast trig runs its Taylor series on the half angle and
 // composes by the double-angle step (the increment has no configured
-// bound). Each option's code sits in `if constexpr` blocks beside the
-// statements it replaces, and its arguments at the end of Args, so with
-// the three flags off a variant compiles to what it did without them
-// (NVPTX's choice of which a*b+c to fuse depends on the instruction order
-// around it, and moving the shared code changes the rounding).
+// bound).
 //
-// Layout. Every array is batch-minor, [...][lane], so a warp's 32 loads
-// and stores of one row are consecutive addresses. The trajectory lives in
-// device memory (wrapper-allocated scratch): traj_s (2, T+1, 6, B) and
-// traj_u (2, T, 2, B) double-buffered — the winner re-roll at step t+1
-// still reads the OLD knot t+1 — traj_g (T, 4, B) (rollout trig cache,
-// blended in place), ks (T, 2, B) and Ks (T, 2, 8, B). At T = 29 that is
-// ~1.1k floats (~4.6 KB) per scenario, so shared memory would hold only
-// ~49 scenarios per block. Vs, the value Hessian (its 28 live entries:
-// row/column 4 is structurally diag(wc2)), K, Qus and the n_ls candidate
-// states stay in registers; the template on (n_ls, ddp, fast trig,
-// adaptive weight scale) lets the 8x8 algebra unroll.
+// Memory. Every array is batch-minor, [...][lane], so a warp's 32 loads and
+// stores of one row are consecutive addresses; each thread adds its lane to
+// the base pointers once and addresses rows by 32-bit multiples of B. The
+// trajectory has one buffer, the outputs themselves: rows 0-5 of ss
+// (T+1, 8, B) and us (T, 2, B); rows 6-7 of ss (the previous control) are
+// filled once at the end. Scratch: traj_g (T, 4, B), the rollout's trig
+// cache; ks (T, 2, B) and Ks (T, 2, 7, B), the gains without K's
+// structurally zero column 4; cand_u (n_ls, T, 2, B), the line search's
+// clamped controls. The re-roll replays the winner's recorded controls
+// from s0 and writes s, u and g in place; a lane whose step is not
+// accepted skips it. That is the TPU kernel's re-roll, u_b + alpha_sel k +
+// K ds recomputed (solve_pallas.py:692-707), exactly: alpha_sel is one of
+// the candidates' alphas and the candidate's state took the same steps, so
+// the recomputed control is the recorded one bit for bit (the plain
+// version recomputes it; tests/test_torch_reroll.py). Counted per knot and
+// SQP iteration, the scratch traffic is 74 floats at n_ls = 4 (82 at 8):
+// the backward reads s, u, g (12) and writes k, K (16); the line search
+// reads s, u, k, K (24) and writes n_ls x 2 controls; the re-roll reads 2
+// and writes 12, on accepted lanes only (solve_mega.scratch_bytes). At
+// T = 29 that is 8.6 KB per lane-iteration, 7.0 KB when the step is
+// rejected (the earlier double-buffered design streamed 106 floats, 12.3
+// KB, on every lane-iteration).
 //
-// What bounds it on this card: register pressure (the unrolled backward
-// stage keeps ~100 live values; `-Xptxas -v` reports registers and spills
-// in the build log) and the ~5 KB of per-scenario trajectory traffic per
-// SQP iteration, which streams through L2/HBM (B = 524,288 moves ~2.6 GB
-// per iteration). The batch-minor layout keeps that traffic coalesced.
+// The knot rows reach the threads through a ring of kStages knots in
+// dynamic shared memory (kRingRows floats per knot and thread), filled by
+// per-thread asynchronous copies (async_copy.cuh): the backward prefetches
+// knots t-1 and t-2 while it computes knot t (u_{t-1} comes from knot
+// t-1's row, not from a second load), the line search knots t+1 and t+2.
+// A copy needs no barrier between threads, so the per-thread exit stays
+// exact; the lockstep variant uses the same per-thread copies (its done
+// threads skip the body, so the block never copies a row together).
 //
-// Numerics follow the reference kernel: read_s selects (never multiplies)
-// the zero previous control at t = 0; trig "exact" is sinf/cosf; the
-// blobs' exponentials are expf; the QP's three reciprocals are IEEE
-// divisions (no --use_fast_math). nvcc
-// contracts a*b+c into FMAs, so the kernel agrees with its plain version
-// to solver tolerance, not bit for bit.
+// What bounds it on this card: the scratch traffic above (the arithmetic
+// intensity is ~4 counted operations per byte, under the card's ridge of
+// ~20), the latency of a serial per-lane recursion at 8-12 resident warps
+// per SM, and a warp running to its slowest lane. Vs, the value Hessian
+// (its 28 live entries: row/column 4 is structurally diag(wc2)), K, Qus
+// and the n_ls candidate states stay in registers; the template on (n_ls,
+// ddp, fast trig, adaptive weight scale) lets the 8x8 algebra unroll
+// (`-Xptxas -v` reports registers and spills in the build log). Tensor
+// cores and TMA tensor maps do not apply: each lane's 8x8 Riccati algebra
+// shares no operand with another lane, so there is no product for wgmma,
+// and a knot's rows are one word per lane.
+//
+// Each option's code sits in `if constexpr` blocks beside the statements
+// it replaces, and its arguments at the end of Args. Numerics follow the
+// reference kernel: the zero previous control at t = 0 is a select, never
+// a multiply; trig "exact" is sinf/cosf; the blobs' exponentials are expf;
+// the QP's three reciprocals are IEEE divisions (no --use_fast_math). The
+// build passes -fmad=false (kernels/_build.py), so no a*b + c is contracted
+// into an FMA and every product and sum rounds as in the plain version,
+// which computes in the same order: the two agree bit for bit but for the
+// transcendentals (sinf/cosf/expf against PyTorch's), whose last-bit
+// differences the iterations can carry to solver tolerance. With FMA
+// contraction the two parted at rounding-level decisions (an acceptance,
+// a box-QP clamp, a convergence test) on a few lanes in 10^5, and which
+// lanes moved with every change of the code around them.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "async_copy.cuh"
 #include "tiles.cuh"
 
 namespace mega {
 
 // One block is one tile of lanes (solve_mega.TILE in the wrapper).
 constexpr int kTile = 128;
+// The knot ring: kStages knots of kRingRows floats per thread. A backward
+// knot is s (6), u (2) and the trig cache g (4); a line-search knot is s
+// (6), u (2), k (2) and K without its zero column (14).
+constexpr int kStages = 3;
+constexpr int kRingRows = 24;
+constexpr int kRingBytes = kStages * kRingRows * kTile * 4;
 
 // packed-parameter rows (kernels/pack.py)
 enum {
@@ -90,19 +126,20 @@ struct Args {
   const float* ub;    // (2, B)
   const float* u0;    // (T, 2, B)
   const float* resume;  // (4, B): done, conv, mu, gnorm; or null
-  float* ss;          // (T+1, 8, B) out
-  float* us;          // (T, 2, B) out
+  float* ss;          // (T+1, 8, B) out; rows 0-5 are the trajectory
+  float* us;          // (T, 2, B) out; the trajectory's controls
   float* cost;        // (B,) out
   float* conv;
   float* iters;
   float* gnorm;
   float* mu;
   float* done;
-  float* traj_s;      // (2, T+1, 6, B) scratch
-  float* traj_u;      // (2, T, 2, B)
-  float* traj_g;      // (T, 4, B)
+  float* diag;        // (NLS + 2, B): candidate costs, cost before, alpha;
+                      // or null
+  float* traj_g;      // (T, 4, B) scratch
   float* ks;          // (T, 2, B)
-  float* Ks;          // (T, 2, 8, B)
+  float* Ks;          // (T, 2, 7, B)
+  float* cand_u;      // (NLS, T, 2, B)
   int P, B, T, max_iters, n_done_needed;
   float sign, tol_grad, tol_cost_eff, mu_min, mu_max, mu_factor, ddp_gate;
   const float* setp;  // (T+1, 3, B) per-knot setpoints (SETP)
@@ -110,39 +147,58 @@ struct Args {
   int n_blobs;
 };
 
-// Per-thread view of the batch-minor scratch buffers.
+// The thread's view of its lane: base pointers with the lane added once,
+// rows addressed by 32-bit multiples of the batch stride B, and its slots
+// of the knot ring (row r of stage q at ring[(q * kRingRows + r) * kTile]).
 struct Lane {
-  float *ts, *tu, *tg, *tk, *tK;
-  size_t B, lane;
-  int T;
-  __device__ float* s(int buf, int t, int r) const {
-    return ts + (size_t)((buf * (T + 1) + t) * 6 + r) * B + lane;
+  float *s, *u, *g, *k, *K, *cu;
+  float* ring;
+  int B, T;
+  __device__ __forceinline__ float* stage(int t) const {
+    return ring + (t % kStages) * (kRingRows * kTile);
   }
-  __device__ float* u(int buf, int t, int m) const {
-    return tu + (size_t)((buf * T + t) * 2 + m) * B + lane;
-  }
-  __device__ float* g(int t, int r) const {
-    return tg + (size_t)(t * 4 + r) * B + lane;
-  }
-  __device__ float* k(int t, int m) const {
-    return tk + (size_t)(t * 2 + m) * B + lane;
-  }
-  __device__ float* K(int t, int m, int j) const {
-    return tK + (size_t)((t * 2 + m) * 8 + j) * B + lane;
-  }
-  // Full 8-row augmented state at knot t: six stored rows plus the
-  // previous control from traj_u[buf][t-1]. A select at t = 0, not a
-  // multiply: 0 * NaN from scratch would poison the state.
-  __device__ void read_s(int buf, int t, float (&s8)[8]) const {
+  // knot t's backward rows: s (6), u (2), g (4)
+  __device__ __forceinline__ void fetch_bwd(int t) const {
+    float* q = stage(t);
+    const int st = t * 8 * B, ut = t * 2 * B, gt = t * 4 * B;
 #pragma unroll
-    for (int r = 0; r < 6; ++r) s8[r] = *s(buf, t, r);
-    if (t >= 1) {
-      s8[6] = *u(buf, t - 1, 0);
-      s8[7] = *u(buf, t - 1, 1);
-    } else {
-      s8[6] = 0.0f;
-      s8[7] = 0.0f;
+    for (int r = 0; r < 6; ++r) copy_async(q + r * kTile, s + st + r * B);
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+      copy_async(q + (6 + m) * kTile, u + ut + m * B);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      copy_async(q + (8 + r) * kTile, g + gt + r * B);
+  }
+  // knot t's line-search rows: s (6), u (2), k (2), K (14)
+  __device__ __forceinline__ void fetch_ls(int t) const {
+    float* q = stage(t);
+    const int st = t * 8 * B, ut = t * 2 * B, Kt = t * 14 * B;
+#pragma unroll
+    for (int r = 0; r < 6; ++r) copy_async(q + r * kTile, s + st + r * B);
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      copy_async(q + (6 + m) * kTile, u + ut + m * B);
+      copy_async(q + (8 + m) * kTile, k + ut + m * B);
     }
+#pragma unroll
+    for (int j = 0; j < 14; ++j)
+      copy_async(q + (10 + j) * kTile, K + Kt + j * B);
+  }
+  // a rollout's step at knot t, in place: u(t), g(t) and s(t+1)
+  __device__ __forceinline__ void put(int t, float u0, float u1, float ct,
+                                      float st, float se, float ce,
+                                      const float (&sn)[8]) const {
+    u[t * 2 * B] = u0;
+    u[(t * 2 + 1) * B] = u1;
+    float* gt = g + t * 4 * B;
+    gt[0] = ct;
+    gt[B] = st;
+    gt[2 * B] = se;
+    gt[3 * B] = ce;
+    float* sp = s + (t + 1) * 8 * B;
+#pragma unroll
+    for (int r = 0; r < 6; ++r) sp[r * B] = sn[r];
   }
 };
 
@@ -185,16 +241,17 @@ struct Problem {
 };
 
 // The lane's view of the options' inputs: the setpoint profile (SETP), the
-// blobs (BLOBS) and the bicycle's 1 / lf (BICYCLE).
+// blobs (BLOBS) and the bicycle's 1 / lf (BICYCLE); the pointers carry the
+// lane.
 struct Extras {
   const float *setp, *bx, *by, *bg, *bw;
   int n_blobs;
-  size_t B, lane;
+  int B;
   float invlf;
 
   // knot t's (ref_cte, ref_etheta, ref_vel)
   __device__ void ref(int t, float& rc, float& re, float& rv) const {
-    const float* r = setp + (size_t)(t * 3) * B + lane;
+    const float* r = setp + t * 3 * B;
     rc = r[0];
     re = r[B];
     rv = r[2 * B];
@@ -204,7 +261,7 @@ struct Extras {
   __device__ float obs_val(float x, float y) const {
     float tot = 0.0f;
     for (int k = 0; k < n_blobs; ++k) {
-      const size_t i = (size_t)k * B + lane;
+      const int i = k * B;
       const float dx = x - bx[i];
       const float dy = y - by[i];
       tot = tot + bw[i] * expf(-(dx * dx + dy * dy) * bg[i]);
@@ -220,7 +277,7 @@ struct Extras {
                             float& hyy) const {
     gx = gy = hxx = hxy = hyy = 0.0f;
     for (int k = 0; k < n_blobs; ++k) {
-      const size_t i = (size_t)k * B + lane;
+      const int i = k * B;
       const float dx = x - bx[i];
       const float dy = y - by[i];
       const float g = bg[i];
@@ -333,6 +390,11 @@ __device__ __forceinline__ float feedback(float ub, float alpha, float k,
   return ub + alpha * k + sum;
 }
 
+// a lane's element of an optional (., B) input, or null
+__device__ __forceinline__ const float* at(const float* p, int lane) {
+  return p == nullptr ? nullptr : p + lane;
+}
+
 template <int NLS, bool DDP, bool FAST, bool ADAPT, bool TILE_EXIT,
           bool BLOBS, bool SETP, bool BICYCLE>
 __global__ void __launch_bounds__(kTile)
@@ -341,9 +403,11 @@ __global__ void __launch_bounds__(kTile)
   // under TILE_EXIT the launcher takes B % kTile == 0 only, so no thread
   // of a block returns here and misses the block's barriers
   if (lane_i >= a.B) return;
-  const size_t B = a.B;
+  const int B = a.B;
   const int T = a.T;
-  const Lane L{a.traj_s, a.traj_u, a.traj_g, a.ks, a.Ks, B, (size_t)lane_i, T};
+  const Lane L{a.ss + lane_i, a.us + lane_i, a.traj_g + lane_i,
+               a.ks + lane_i, a.Ks + lane_i, a.cand_u + lane_i,
+               ring_base() + threadIdx.x, B, T};
 
   float par[N_PAR];
 #pragma unroll
@@ -367,8 +431,8 @@ __global__ void __launch_bounds__(kTile)
   pr.rc = par[P_RCTE];
   pr.re = par[P_RETH];
   pr.rv = par[P_RVEL];
-  Extras ex{a.setp, a.bx, a.by, a.bg, a.bw, a.n_blobs, B, (size_t)lane_i,
-            0.0f};
+  Extras ex{at(a.setp, lane_i), at(a.bx, lane_i), at(a.by, lane_i),
+            at(a.bg, lane_i), at(a.bw, lane_i), a.n_blobs, B, 0.0f};
   if constexpr (BICYCLE) ex.invlf = 1.0f / par[P_LF];
   const float lb0 = a.lb[lane_i], lb1 = a.lb[B + lane_i];
   const float ub0 = a.ub[lane_i], ub1 = a.ub[B + lane_i];
@@ -409,20 +473,19 @@ __global__ void __launch_bounds__(kTile)
     trig.sphi = sinf(phi);
   }
 
-  // ---------------- initial rollout into buffer 0 ----------------------
+  // ---------------- initial rollout ------------------------------------
 #pragma unroll
-  for (int r = 0; r < 6; ++r) *L.s(0, 0, r) = s0[r];
+  for (int r = 0; r < 6; ++r) L.s[r * B] = s0[r];
   float cost;
   {
     float s[8];
 #pragma unroll
     for (int r = 0; r < 8; ++r) s[r] = s0[r];
     float acc = 0.0f, ct = ct00, st = st00;
+    const float* u_in = a.u0 + lane_i;
     for (int t = 0; t < T; ++t) {
-      const float u0 = a.u0[(size_t)(t * 2) * B + lane_i];
-      const float u1 = a.u0[(size_t)(t * 2 + 1) * B + lane_i];
-      *L.u(0, t, 0) = u0;
-      *L.u(0, t, 1) = u1;
+      const float u0 = u_in[t * 2 * B];
+      const float u1 = u_in[(t * 2 + 1) * B];
       const float rate = t >= 1 ? 1.0f : 0.0f;
       if constexpr (SETP) ex.ref(t, pr.rc, pr.re, pr.rv);
       if constexpr (BLOBS)
@@ -430,17 +493,12 @@ __global__ void __launch_bounds__(kTile)
       else
         acc = acc + pr.stage_cost(s, u0, u1, rate);
       const float se = trig.se(ct, st, s[5]);
-      *L.g(t, 0) = ct;
-      *L.g(t, 1) = st;
-      *L.g(t, 2) = se;
-      *L.g(t, 3) = trig.ce(ct, st, s[5]);
       float sn[8];
       if constexpr (BICYCLE)
         ex.bicycle_step(pr, s, u0, u1, ct, st, se, sn);
       else
         pr.dyn_step(s, u0, u1, ct, st, se, sn);
-#pragma unroll
-      for (int r = 0; r < 6; ++r) *L.s(0, t + 1, r) = sn[r];
+      L.put(t, u0, u1, ct, st, se, trig.ce(ct, st, s[5]), sn);
       if constexpr (BICYCLE)
         trig.step(ct, st, s[3] * ex.invlf * u0 * dt, sn[2]);
       else
@@ -466,7 +524,6 @@ __global__ void __launch_bounds__(kTile)
     mu = a.resume[2 * B + lane_i];
     gnorm = a.resume[3 * B + lane_i];
   }
-  int cur = 0;
   for (int it = 0; it < a.max_iters; ++it) {
     if (TILE_EXIT) {
       // the block decides together; every thread, done or not, gets here
@@ -481,9 +538,15 @@ __global__ void __launch_bounds__(kTile)
 
     // ---- backward scan with inline linearization ----
     float Vs[8], V[8][8];
+    // knots T-1 and T-2 start on their way while the terminal is read
+    L.fetch_bwd(T - 1);
+    copy_commit();
+    if (T >= 2) L.fetch_bwd(T - 2);
+    copy_commit();
     {
-      float sT[8];
-      L.read_s(cur, T, sT);
+      float sT[6];
+#pragma unroll
+      for (int r = 0; r < 6; ++r) sT[r] = L.s[(T * 8 + r) * B];
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         Vs[i] = 0.0f;
@@ -504,13 +567,29 @@ __global__ void __launch_bounds__(kTile)
     }
     float dv1 = 0.0f, dv2 = 0.0f, pg = 0.0f;
     for (int t = T - 1; t >= 0; --t) {
+      // knot t-2 goes out; knots t and t-1 (for u_{t-1}) have arrived
+      if (t >= 2) L.fetch_bwd(t - 2);
+      copy_commit();
+      copy_wait<1>();
+      const float* q = L.stage(t);
       float s_t[8];
-      L.read_s(cur, t, s_t);
-      const float ut0 = *L.u(cur, t, 0), ut1 = *L.u(cur, t, 1);
+#pragma unroll
+      for (int r = 0; r < 6; ++r) s_t[r] = q[r * kTile];
+      // the previous control; a select at t = 0, not a multiply: 0 * NaN
+      // from scratch would poison the state
+      if (t >= 1) {
+        const float* qp = L.stage(t - 1);
+        s_t[6] = qp[6 * kTile];
+        s_t[7] = qp[7 * kTile];
+      } else {
+        s_t[6] = 0.0f;
+        s_t[7] = 0.0f;
+      }
+      const float ut0 = q[6 * kTile], ut1 = q[7 * kTile];
       const float rate = t >= 1 ? 1.0f : 0.0f;
       const float x = s_t[0], v = s_t[3], eth = s_t[5];
-      const float ct = *L.g(t, 0), st = *L.g(t, 1);
-      const float se = *L.g(t, 2), ce = *L.g(t, 3);
+      const float ct = q[8 * kTile], st = q[9 * kTile];
+      const float se = q[10 * kTile], ce = q[11 * kTile];
       const float fp = polyder(pr.c, pr.P, x);
       const float a02 = -v * st * dt;
       const float a03 = ct * dt;
@@ -724,12 +803,18 @@ __global__ void __launch_bounds__(kTile)
         }
       }
 
-      *L.k(t, 0) = k0;
-      *L.k(t, 1) = k1;
+      // k (2) and K without its zero column 4 (2 x 7)
+      L.k[t * 2 * B] = k0;
+      L.k[(t * 2 + 1) * B] = k1;
+      {
+        float* Kt = L.K + t * 14 * B;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        *L.K(t, 0, j) = K0[j];
-        *L.K(t, 1, j) = K1[j];
+        for (int j = 0, jj = 0; j < 8; ++j) {
+          if (j == 4) continue;
+          Kt[jj * B] = K0[j];
+          Kt[(7 + jj) * B] = K1[j];
+          ++jj;
+        }
       }
       dv1 = dv1 + k0 * Qu0 + k1 * Qu1;
       dv2 = dv2 + 0.5f * (k0 * quk0 + k1 * quk1);
@@ -755,20 +840,37 @@ __global__ void __launch_bounds__(kTile)
       cts[al] = ct00;
       sts[al] = st00;
     }
+    L.fetch_ls(0);
+    copy_commit();
+    if (T >= 2) L.fetch_ls(1);
+    copy_commit();
+    // the base trajectory's previous control (rows 6-7 of s_b)
+    float up0 = 0.0f, up1 = 0.0f;
     for (int t = 0; t < T; ++t) {
+      // knot t+2 goes out; knot t has arrived
+      if (t + 2 < T) L.fetch_ls(t + 2);
+      copy_commit();
+      copy_wait<2>();
+      const float* q = L.stage(t);
       float s_b[8], Km0[8], Km1[8];
-      L.read_s(cur, t, s_b);
-      const float ub_0 = *L.u(cur, t, 0), ub_1 = *L.u(cur, t, 1);
-      const float k0 = *L.k(t, 0), k1 = *L.k(t, 1);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int r = 0; r < 6; ++r) s_b[r] = q[r * kTile];
+      s_b[6] = up0;
+      s_b[7] = up1;
+      const float ub_0 = q[6 * kTile], ub_1 = q[7 * kTile];
+      const float k0 = q[8 * kTile], k1 = q[9 * kTile];
+#pragma unroll
+      for (int j = 0, jj = 0; j < 8; ++j) {
         if (j == 4) {
           Km0[j] = Km1[j] = 0.0f;
           continue;
         }
-        Km0[j] = *L.K(t, 0, j);
-        Km1[j] = *L.K(t, 1, j);
+        Km0[j] = q[(10 + jj) * kTile];
+        Km1[j] = q[(17 + jj) * kTile];
+        ++jj;
       }
+      up0 = ub_0;
+      up1 = ub_1;
       const float rate = t >= 1 ? 1.0f : 0.0f;
       if constexpr (SETP) ex.ref(t, pr.rc, pr.re, pr.rv);
 #pragma unroll
@@ -779,6 +881,9 @@ __global__ void __launch_bounds__(kTile)
         for (int j = 0; j < 8; ++j) ds[j] = S[al][j] - s_b[j];
         const float u0 = clampf(feedback(ub_0, alpha, k0, Km0, ds), lb0, ub0);
         const float u1 = clampf(feedback(ub_1, alpha, k1, Km1, ds), lb1, ub1);
+        // the candidate's controls, for the winner's re-roll
+        L.cu[(al * T + t) * 2 * B] = u0;
+        L.cu[((al * T + t) * 2 + 1) * B] = u1;
         if constexpr (BLOBS)
           accs[al] = accs[al] + (pr.stage_cost(S[al], u0, u1, rate) +
                                  ex.obs_val(S[al][0], S[al][1]));
@@ -799,6 +904,7 @@ __global__ void __launch_bounds__(kTile)
     }
     // the first (largest) alpha that lowers the cost wins
     float picked = 0.0f, alpha_sel = 0.0f, cost_sel = cost;
+    int win = 0;
     if constexpr (SETP) ex.ref(T, pr.rc, pr.re, pr.rv);
 #pragma unroll
     for (int al = 0; al < NLS; ++al) {
@@ -808,71 +914,50 @@ __global__ void __launch_bounds__(kTile)
                              ex.obs_val(S[al][0], S[al][1]));
       else
         cost_a = accs[al] + pr.term_cost(S[al]);
+      if (a.diag != nullptr) a.diag[al * B + lane_i] = cost_a;
       const float improved = cost_a < cost ? 1.0f : 0.0f;
       const float take = improved * (1.0f - fminf(picked, 1.0f));
       picked = picked + take;
       alpha_sel = alpha_sel + take * (1.0f / (float)(1 << al));
       cost_sel = take > 0.5f ? cost_a : cost_sel;
+      win = take > 0.5f ? al : win;
+    }
+    if (a.diag != nullptr) {
+      a.diag[NLS * B + lane_i] = cost;
+      a.diag[(NLS + 1) * B + lane_i] = alpha_sel;
     }
     const float accepted = fminf(picked, 1.0f);
     const float upd = accepted * act;
-    const float keep = 1.0f - upd;
 
-    // ---- winner re-roll into the other buffer (masked blend) ----
-    const int nxt = 1 - cur;
-#pragma unroll
-    for (int r = 0; r < 6; ++r) *L.s(nxt, 0, r) = s0[r];
-    {
+    // ---- the winner's re-roll: its recorded controls replayed from s0,
+    // written in place; a lane whose step is not accepted keeps its
+    // trajectory and skips this ----
+    if (upd > 0.5f) {
+      const float* cw = L.cu + win * T * 2 * B;
       float sa[8];
 #pragma unroll
       for (int r = 0; r < 8; ++r) sa[r] = s0[r];
       float ct = ct00, st = st00;
+      float u0 = cw[0], u1 = cw[B];
       for (int t = 0; t < T; ++t) {
-        float s_b[8], Km0[8], Km1[8];
-        L.read_s(cur, t, s_b);
-        const float ub_0 = *L.u(cur, t, 0), ub_1 = *L.u(cur, t, 1);
-        const float k0 = *L.k(t, 0), k1 = *L.k(t, 1);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          if (j == 4) {
-            Km0[j] = Km1[j] = 0.0f;
-            continue;
-          }
-          Km0[j] = *L.K(t, 0, j);
-          Km1[j] = *L.K(t, 1, j);
-        }
-        float ds[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) ds[j] = sa[j] - s_b[j];
-        const float u0 =
-            clampf(feedback(ub_0, alpha_sel, k0, Km0, ds), lb0, ub0);
-        const float u1 =
-            clampf(feedback(ub_1, alpha_sel, k1, Km1, ds), lb1, ub1);
+        // the next knot's controls load while this knot computes
+        const int tn = t + 1 < T ? t + 1 : t;
+        const float u0n = cw[tn * 2 * B], u1n = cw[(tn * 2 + 1) * B];
         const float se = trig.se(ct, st, sa[5]);
-        const float gn[4] = {ct, st, se, trig.ce(ct, st, sa[5])};
-        // the trig cache blends like the states it describes; in place is
-        // safe (nothing reads knot t again before the next backward pass)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          float* gp = L.g(t, r);
-          *gp = upd * gn[r] + keep * *gp;
-        }
         float sn[8];
         if constexpr (BICYCLE)
           ex.bicycle_step(pr, sa, u0, u1, ct, st, se, sn);
         else
           pr.dyn_step(sa, u0, u1, ct, st, se, sn);
-        *L.u(nxt, t, 0) = upd * u0 + keep * ub_0;
-        *L.u(nxt, t, 1) = upd * u1 + keep * ub_1;
-#pragma unroll
-        for (int r = 0; r < 6; ++r)
-          *L.s(nxt, t + 1, r) = upd * sn[r] + keep * *L.s(cur, t + 1, r);
+        L.put(t, u0, u1, ct, st, se, trig.ce(ct, st, sa[5]), sn);
         if constexpr (BICYCLE)
           trig.step(ct, st, sa[3] * ex.invlf * u0 * dt, sn[2]);
         else
           trig.step(ct, st, u0 * dt, sn[2]);
 #pragma unroll
         for (int r = 0; r < 8; ++r) sa[r] = sn[r];
+        u0 = u0n;
+        u1 = u1n;
       }
     }
     const float cost2 = upd > 0.5f ? cost_sel : cost;
@@ -904,19 +989,16 @@ __global__ void __launch_bounds__(kTile)
     cost = cost2;
     mu = mu2;
     n_small = n_small2;
-    cur = nxt;
   }
 
   // ---------------- outputs --------------------------------------------
-  for (int t = 0; t <= T; ++t) {
-    float s8[8];
-    L.read_s(cur, t, s8);
-#pragma unroll
-    for (int r = 0; r < 8; ++r) a.ss[(size_t)(t * 8 + r) * B + lane_i] = s8[r];
-    if (t < T) {
-      a.us[(size_t)(t * 2) * B + lane_i] = *L.u(cur, t, 0);
-      a.us[(size_t)(t * 2 + 1) * B + lane_i] = *L.u(cur, t, 1);
-    }
+  // the trajectory is already in ss rows 0-5 and us; rows 6-7 of ss carry
+  // knot t's previous control (zero at t = 0)
+  L.s[6 * B] = 0.0f;
+  L.s[7 * B] = 0.0f;
+  for (int t = 1; t <= T; ++t) {
+    L.s[(t * 8 + 6) * B] = L.u[(t - 1) * 2 * B];
+    L.s[(t * 8 + 7) * B] = L.u[((t - 1) * 2 + 1) * B];
   }
   a.cost[lane_i] = cost;
   a.conv[lane_i] = conv;
@@ -963,17 +1045,24 @@ __global__ void __launch_bounds__(kTile)
 #define MEGA_ERR_TILE 100001
 #define MEGA_ERR_INPUT 100002
 
+// the instantiation this library holds
+#define MEGA_KERNEL                                                      \
+  mega::solve_mega_kernel<MEGA_NLS, MEGA_DDP != 0, MEGA_FAST != 0,      \
+                          MEGA_ADAPT != 0, MEGA_TILE_EXIT != 0,         \
+                          MEGA_BLOBS != 0, MEGA_SETP != 0,              \
+                          MEGA_BICYCLE != 0>
+
 extern "C" int mpc_solve_mega_f32(
     const void* z0, const void* cf, const void* par, const void* lb,
     const void* ub, const void* u0, const void* resume, const void* setp,
     const void* bx, const void* by, const void* bg, const void* bw,
     void* ss, void* us, void* cost, void* conv, void* iters, void* gnorm,
-    void* mu, void* done, void* traj_s, void* traj_u, void* traj_g,
-    void* ks, void* Ks, int P, int B, int T, int max_iters,
-    int n_done_needed, int n_blobs, float sign, float tol_grad,
-    float tol_cost_eff, float mu_min, float mu_max, float mu_factor,
-    float ddp_gate, int n_ls, int ddp, int fast, int adaptive,
-    int tile_exit, int blobs, int setp_on, int bicycle, void* stream) {
+    void* mu, void* done, void* diag, void* traj_g, void* ks, void* Ks,
+    void* cand_u, int P, int B, int T, int max_iters, int n_done_needed,
+    int n_blobs, float sign, float tol_grad, float tol_cost_eff,
+    float mu_min, float mu_max, float mu_factor, float ddp_gate, int n_ls,
+    int ddp, int fast, int adaptive, int tile_exit, int blobs, int setp_on,
+    int bicycle, void* stream) {
   if (n_ls != MEGA_NLS || (ddp != 0) != (MEGA_DDP != 0) ||
       (fast != 0) != (MEGA_FAST != 0) ||
       (adaptive != 0) != (MEGA_ADAPT != 0) ||
@@ -1003,11 +1092,11 @@ extern "C" int mpc_solve_mega_f32(
   a.gnorm = static_cast<float*>(gnorm);
   a.mu = static_cast<float*>(mu);
   a.done = static_cast<float*>(done);
-  a.traj_s = static_cast<float*>(traj_s);
-  a.traj_u = static_cast<float*>(traj_u);
+  a.diag = static_cast<float*>(diag);
   a.traj_g = static_cast<float*>(traj_g);
   a.ks = static_cast<float*>(ks);
   a.Ks = static_cast<float*>(Ks);
+  a.cand_u = static_cast<float*>(cand_u);
   a.P = P;
   a.B = B;
   a.T = T;
@@ -1026,14 +1115,38 @@ extern "C" int mpc_solve_mega_f32(
   a.bg = static_cast<const float*>(bg);
   a.bw = static_cast<const float*>(bw);
   a.n_blobs = n_blobs;
+  // the knot ring's dynamic shared memory
+  const cudaError_t set = cudaFuncSetAttribute(
+      MEGA_KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mega::kRingBytes);
+  if (set != cudaSuccess) return static_cast<int>(set);
   const int threads = mega::kTile;
   const int blocks = (B + threads - 1) / threads;
-  mega::solve_mega_kernel<MEGA_NLS, MEGA_DDP != 0, MEGA_FAST != 0,
-                          MEGA_ADAPT != 0, MEGA_TILE_EXIT != 0,
-                          MEGA_BLOBS != 0, MEGA_SETP != 0,
-                          MEGA_BICYCLE != 0>
-      <<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  MEGA_KERNEL<<<blocks, threads, mega::kRingBytes,
+                static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What this variant occupies on the current device: out = (registers per
+// thread, local memory bytes per thread, dynamic shared memory bytes per
+// block, resident blocks per SM at that shared memory).
+extern "C" int mpc_solve_mega_occupancy(int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, MEGA_KERNEL);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(MEGA_KERNEL,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             mega::kRingBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, MEGA_KERNEL, mega::kTile, mega::kRingBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = mega::kRingBytes;
+  out[3] = blocks;
+  return 0;
 }
 
 extern "C" const char* mpc_cuda_error_string(int err) {

@@ -7,8 +7,12 @@ runs the complete control-limited SQP loop for every scenario: the
 initial rollout, then per iteration the inline-linearized Riccati
 backward scan with gated DDP terms and an exact 2-D box QP per stage,
 `n_ls` parallel line-search rollouts (alpha = 0.5^j, the first — largest
-— alpha that lowers the cost wins), the masked winner re-roll, and the
-per-lane mu / convergence / stall bookkeeping.
+— alpha that lowers the cost wins), the winner's re-roll, and the
+per-lane mu / convergence / stall bookkeeping. The kernel's re-roll
+replays the controls its line search recorded for the winner, on the
+lanes whose step is accepted; the plain version recomputes them as the
+TPU kernel does, u_b + alpha_sel k + K ds, blended into every lane. The
+two are the same controls bit for bit (tests/test_torch_reroll.py).
 
 Inputs are batch-last: zT (6, B), cT (P, B), params (12, B) from
 `pack.pack_params`, lb/ub (2, B), u0 (T, 2, B); optionally the resume
@@ -16,7 +20,8 @@ state (done, conv, mu, gnorm), each (B,), the blobs (cx, cy, gamma, w),
 each (K, B) (`GaussianObstacles.lane()`), and per-knot setpoints `refs`
 (T+1, 3, B) of (ref_cte, ref_etheta, ref_vel). Outputs are
 (ss (T+1, 8, B), us (T, 2, B), cost, conv, iters, gnorm, mu, done), each
-of the last six (B,).
+of the last six (B,). An optional `diag` (n_ls + 2, B) receives each lane's
+last line search (`check_diag`); the main path never passes it.
 
 The port covers the whole kernel: the diff-drive and bicycle families,
 ddp on or off, fast or exact trig, `scale_adaptive` on or off, per-lane
@@ -156,6 +161,24 @@ def _knobs_for(cfg, dtype, blobs, refs) -> Knobs:
                          has_setp=refs is not None)
 
 
+def check_diag(diag, kn, zT) -> None:
+    """The line-search diagnostic output: None (the main path), or an
+    (n_ls + 2, B) tensor of the inputs' dtype and device that every
+    iteration a lane runs overwrites in that lane's column with the n_ls
+    candidate costs, the cost before the step and the alpha chosen (0 when
+    no candidate lowered the cost). After the call it holds each lane's
+    last iteration; a lane that ran none keeps what the caller put
+    there."""
+    if diag is None:
+        return
+    want = (kn.n_ls + 2, zT.shape[-1])
+    if tuple(diag.shape) != want or diag.dtype != zT.dtype or (
+            diag.device != zT.device) or not diag.is_contiguous():
+        raise ValueError(f"diag: expected a contiguous {want} {zT.dtype} "
+                         f"tensor on {zT.device}, got {tuple(diag.shape)} "
+                         f"{diag.dtype} on {diag.device}")
+
+
 def _check_inputs(zT, cT, pp, lb, ub, u0, kn, resume=None, blobs=None,
                   refs=None):
     B = zT.shape[-1]
@@ -191,7 +214,7 @@ def _check_inputs(zT, cT, pp, lb, ub, u0, kn, resume=None, blobs=None,
 
 
 def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None, blobs=None,
-                     refs=None):
+                     refs=None, diag=None):
     """The plain PyTorch version of the kernel: `_kernel` of
     `solve_pallas.py` transcribed onto (B,)-vectors — the same
     structured-sparsity products in the same operation order, and an `act`
@@ -210,11 +233,15 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None, blobs=None,
     concave part on lanes past the DDP gate) the backward's stage and
     terminal expansions. `refs` (T+1, 3, B): knot t's setpoints replace
     the scalar (ref_cte, ref_etheta, ref_vel) in knot t's cost. With
-    `cfg.model == "bicycle"` the heading advances by v delta dt / lf."""
+    `cfg.model == "bicycle"` the heading advances by v delta dt / lf.
+
+    `diag`: an optional (n_ls + 2, B) tensor, written in place on every
+    iteration a lane runs (`check_diag`)."""
     dtype = zT.dtype
     kn = _knobs_for(cfg, dtype, blobs, refs)
     T = kn.T
     B = _check_inputs(zT, cT, pp, lb, ub, u0, kn, resume, blobs, refs)
+    check_diag(diag, kn, zT)
     dev = zT.device
     sign = kn.sign
     n_alpha = kn.n_ls
@@ -671,6 +698,11 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None, blobs=None,
             picked = picked + take
             alpha_sel = alpha_sel + take * alphas[a]
             cost_sel = torch.where(take > 0.5, costs[a], cost_sel)
+        if diag is not None:
+            on_ = act > 0.5
+            diag[:n_alpha] = torch.where(on_, costs, diag[:n_alpha])
+            diag[n_alpha] = torch.where(on_, cost, diag[n_alpha])
+            diag[n_alpha + 1] = torch.where(on_, alpha_sel, diag[n_alpha + 1])
         accepted = torch.clamp(picked, max=1.0)
         upd = accepted * act
         keep = 1.0 - upd
@@ -743,8 +775,76 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None, blobs=None,
 # ---------------------------------------------------------------- CUDA
 
 
+def scratch_shapes(T: int, n_ls: int, B: int) -> list:
+    """The kernel's scratch buffers, which the wrapper allocates: the
+    rollout's trig cache traj_g (T, 4, B), the gains ks (T, 2, B) and Ks
+    without K's structurally zero column (T, 2, 7, B), and the line
+    search's clamped controls cand_u (n_ls, T, 2, B). The trajectory
+    itself lives in the outputs ss and us."""
+    return [(T, 4, B), (T, _M, B), (T, _M, _N - 1, B), (n_ls, T, _M, B)]
+
+
+# Floats per knot that one SQP iteration of one lane moves through device
+# memory, by phase (backward, line search, re-roll), counted from the
+# kernel source; "replay" is the kernel, "recompute" the double-buffered
+# design it replaced, whose re-roll recomputed u_b + alpha k + K ds and
+# blended every lane. replay: the backward reads s, u, g (12) and writes k,
+# K (16); the line search reads s, u, k, K (24) and writes 2 n_ls controls;
+# the re-roll reads 2 and writes 12, on accepted steps only. recompute: the
+# backward reads s, u_{t-1}, u, g (14) and writes k, K (18); the line
+# search reads s, u_{t-1}, u, k, K (26); the re-roll reads those 26, the old
+# g (4) and the old s(t+1) (6) and writes g, u, s (12), on every lane.
+LAYOUTS = ("replay", "recompute")
+
+
+def knot_floats(layout: str, n_ls: int) -> tuple:
+    """(backward, line search, re-roll) floats per knot and SQP iteration
+    of the layout (see LAYOUTS)."""
+    if layout == "replay":
+        return (12 + 16, 24 + 2 * n_ls, 2 + 12)
+    if layout == "recompute":
+        return (14 + 18, 26, 26 + 4 + 6 + 12)
+    raise ValueError(f"layout is one of {LAYOUTS}, got {layout!r}")
+
+
+def scratch_bytes(T: int, n_ls: int, layout: str = "replay",
+                  n_blobs: int = 0, setp: bool = False,
+                  accepted: bool = True) -> int:
+    """Bytes one SQP iteration of one lane moves through device memory by
+    the kernel's design (`knot_floats`): the backward and the line search,
+    and the re-roll if the step was `accepted` (the recompute layout
+    re-rolls every lane), plus the per-knot inputs its variant reads in
+    the backward and the line search: the setpoint profile's 3 floats and
+    each blob's 4 (a candidate's re-read of them hits L1 and is not
+    counted)."""
+    bwd, ls, reroll = knot_floats(layout, n_ls)
+    per_knot = bwd + ls
+    if accepted or layout == "recompute":
+        per_knot += reroll
+    per_knot += 2 * (3 * bool(setp) + 4 * n_blobs)
+    return 4 * T * per_knot
+
+
+def occupancy(variant) -> dict:
+    """What one built variant of the kernel occupies on the current CUDA
+    device: registers and local memory per thread, the knot ring's shared
+    memory per block, and resident blocks per SM
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`)."""
+    from . import _build
+
+    launch = _build.load("solve_mega", variant)
+    out = (ctypes.c_int * 4)()
+    fn = launch.lib.mpc_solve_mega_occupancy
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    _build.check(launch, fn(out), "solve_mega occupancy")
+    return dict(zip(("registers", "local_bytes", "smem_bytes_per_block",
+                     "blocks_per_sm"), out))
+
+
+
 def solve_mega_cuda(zT, cT, pp, lb, ub, u0, cfg, resume=None,
-                    lockstep=False, blobs=None, refs=None):
+                    lockstep=False, blobs=None, refs=None, diag=None):
     """Launch the hand-written kernel (`csrc/solve_mega.cu`) on CUDA
     float32 tensors; raises on anything else. Allocates every output and
     scratch buffer; launches on the current stream and does not
@@ -753,7 +853,8 @@ def solve_mega_cuda(zT, cT, pp, lb, ub, u0, cfg, resume=None,
     what the per-thread loop does, so the two can be timed against each
     other. Blobs and setpoints select the kernel's BLOBS and SETP
     variants (the number of blobs is a runtime argument), the bicycle
-    family its BICYCLE variant."""
+    family its BICYCLE variant. `diag`: the line-search diagnostic
+    (`check_diag`), off the main path."""
     global launches
     args = ((zT, cT, pp, lb, ub, u0) + tuple(resume or ())
             + tuple(blobs or ()) + (() if refs is None else (refs,)))
@@ -770,6 +871,7 @@ def solve_mega_cuda(zT, cT, pp, lb, ub, u0, cfg, resume=None,
                              lockstep=bool(lockstep))
     T = kn.T
     B = _check_inputs(zT, cT, pp, lb, ub, u0, kn, resume, blobs, refs)
+    check_diag(diag, kn, zT)
     P = cT.shape[0]
     if P > 8:
         raise ValueError(f"the kernel takes polynomials up to order 7 "
@@ -777,6 +879,9 @@ def solve_mega_cuda(zT, cT, pp, lb, ub, u0, cfg, resume=None,
     if T < 1 or not 1 <= kn.n_ls <= 8:
         raise ValueError(f"the kernel takes T >= 1 and 1 <= n_ls <= 8, "
                          f"got T={T}, n_ls={kn.n_ls}")
+    if max(16 * T, 8 * (T + 1)) * B >= 2 ** 31:
+        raise ValueError(f"the kernel addresses rows by 32-bit offsets: "
+                         f"T={T} and B={B} are too large")
     ins = [a.contiguous() for a in args[:6]]
     # (4, B): done, conv, mu, gnorm
     res = None if resume is None else torch.stack(list(resume))
@@ -793,12 +898,13 @@ def solve_mega_cuda(zT, cT, pp, lb, ub, u0, cfg, resume=None,
 
     ss, us = empty(T + 1, _N, B), empty(T, _M, B)
     outs = [empty(B) for _ in range(6)]
-    scratch = [empty(2, T + 1, 6, B), empty(2, T, _M, B), empty(T, 4, B),
-               empty(T, _M, B), empty(T, _M, _N, B)]
+    scratch = [empty(*shape) for shape in scratch_shapes(T, kn.n_ls, B)]
     ptr = [ctypes.c_void_p(a.data_ptr()) for a in ins]
     ptr += [ctypes.c_void_p(None if a is None else a.data_ptr())
             for a in opt]
-    ptr += [ctypes.c_void_p(a.data_ptr()) for a in [ss, us] + outs + scratch]
+    ptr += [ctypes.c_void_p(a.data_ptr()) for a in [ss, us] + outs]
+    ptr += [ctypes.c_void_p(None if diag is None else diag.data_ptr())]
+    ptr += [ctypes.c_void_p(a.data_ptr()) for a in scratch]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(
@@ -816,11 +922,12 @@ def solve_mega_cuda(zT, cT, pp, lb, ub, u0, cfg, resume=None,
 
 
 def solve_mega(zT, cT, pp, lb, ub, u0, cfg, resume=None, blobs=None,
-               refs=None):
+               refs=None, diag=None):
     """The megakernel solve: CPU tensors run `solve_mega_plain`, CUDA
     tensors the kernel (float32 only; anything else raises)."""
     fn = solve_mega_cuda if zT.is_cuda else solve_mega_plain
-    return fn(zT, cT, pp, lb, ub, u0, cfg, resume, blobs=blobs, refs=refs)
+    return fn(zT, cT, pp, lb, ub, u0, cfg, resume, blobs=blobs, refs=refs,
+              diag=diag)
 
 
 # ------------------------------------------------------------ schedules

@@ -40,14 +40,15 @@ def _scen(dev, B, seed=0):
                                  B)
 
 
+@pytest.mark.parametrize("B", [1024, 8192])
 @pytest.mark.parametrize("variant", ["prod", "exact", "gn", "no_adaptive"])
-def test_kernel_matches_plain(dev, variant):
+def test_kernel_matches_plain(dev, variant, B):
     cfg = {"prod": PROD,
            "exact": dataclasses.replace(PROD, trig="exact"),
            "gn": dataclasses.replace(PROD, ddp=False, ls_iters=8),
            "no_adaptive": dataclasses.replace(PROD, scale_adaptive=False,
                                               n_steps=12)}[variant]
-    z0s, coeffs = _scen(dev, 1024)
+    z0s, coeffs = _scen(dev, B)
     ins = lane_inputs(z0s, coeffs, MPCParams().astype(torch.float32, dev),
                       cfg)
     k = solve_mega.solve_mega_cuda(*ins, cfg)
@@ -366,3 +367,88 @@ def test_refs_and_blobs_through_the_schedules(dev):
                          p[2].cpu(), p[3].cpu(), p[4].cpu(), cfg.n_steps,
                          compact=compact)
         assert g["ok"], g
+
+
+# the route's matching variant of the whole-solve kernel: GN, 8 candidates,
+# exact trig, the adaptive scale off
+ROUTE_MEGA = SolverConfig(n_steps=30, max_sqp_iters=12, tol_grad=1e-4,
+                          ddp=False, ls_iters=8, trig="exact",
+                          scale_adaptive=False, backward="mega")
+
+
+@pytest.mark.parametrize("variant", ["route_mega", "blobs_tile",
+                                     "blobs_refs_tile"])
+def test_remaining_variants_match_plain(dev, variant):
+    """The variants no other test holds at B=8192: the route's matching
+    variant, and the per-block exit (done_frac = 0.97) with blobs and with
+    blobs and a profile, against the plain version on the same tiles (the
+    numerics over the lanes converged on both sides, as phase 9 of
+    chip_smoke.py holds them)."""
+    B = 8192
+    if variant == "route_mega":
+        cfg, blobs, refs = ROUTE_MEGA, None, None
+        z0s, coeffs = _scen(dev, B, seed=10)
+        ins = lane_inputs(z0s, coeffs, MPCParams().astype(torch.float32,
+                                                          dev), cfg)
+    else:
+        base = "blobs_refs" if "refs" in variant else "blobs_ddp"
+        cfg, ins, blobs, refs = _variant_inputs(dev, base, B)
+        cfg = dataclasses.replace(cfg, done_frac=0.97)
+    k = solve_mega.solve_mega_cuda(*ins, cfg, blobs=blobs, refs=refs)
+    p = solve_mega.solve_mega_plain(*ins, cfg, blobs=blobs, refs=refs)
+    torch.cuda.synchronize()
+    both = ((k[3] > 0.5) & (p[3] > 0.5)).cpu().numpy()
+    g = parity_gates(k[1].permute(2, 0, 1).cpu(), k[2].cpu(), k[3].cpu(),
+                     k[4].cpu(), p[1].permute(2, 0, 1).cpu(), p[2].cpu(),
+                     p[3].cpu(), p[4].cpu(), cfg.n_steps,
+                     lanes=None if variant == "route_mega" else both)
+    assert g["ok"], g
+
+
+def test_builds_have_no_spills_and_fit_shared_memory(dev):
+    """All 15 (kernel, variant) pairs build for sm_90a; the 13 variants of
+    the whole-solve kernel and the fused backward with no spills, and each
+    K1 variant's knot ring fits a block's shared memory (227 KB) with at
+    least two blocks resident per SM. The line search K5 spills 8 bytes
+    at n_alpha = 8 at 168 registers; `__launch_bounds__(128, 1)` removes
+    the spill at 180 registers and made it 3.59 ms against 2.58 on the
+    card (one fewer resident block per SM), so it keeps the spill."""
+    import re
+
+    import chip_smoke
+    from mpc_ros_tpu_torch.kernels import _build
+
+    # every (kernel, variant) pair chip_smoke.py builds: the 13 variants of
+    # the whole-solve kernel (n_ls, ddp, fast, adaptive, tile_exit, blobs,
+    # setp, bicycle), the fused backward and the line search
+    pairs = sorted(chip_smoke.build_pairs())
+    builds = _build.build_many(pairs)
+    assert len(builds) == 15
+    for key, (_, lines) in builds.items():
+        spills = [int(n) for ln in lines
+                  for n in re.findall(r"(\d+) bytes spill", ln)]
+        assert spills, (key, lines)
+        assert key[0] == "forward" or not any(spills), (key, lines)
+    for v in (v for k, v in pairs if k == "solve_mega"):
+        occ = solve_mega.occupancy(v)
+        assert 0 < occ["smem_bytes_per_block"] <= 232448, (v, occ)
+        assert occ["blocks_per_sm"] >= 2, (v, occ)
+
+
+def test_diag_reads_the_last_line_search(dev):
+    """The line-search diagnostic on the card holds what the plain
+    version's holds: each lane's last alpha and cost before the step,
+    and candidate costs within f32 rounding."""
+    z0s, coeffs = _scen(dev, 1024, seed=8)
+    ins = lane_inputs(z0s, coeffs, MPCParams().astype(torch.float32, dev),
+                      PROD)
+    dk = torch.full((6, 1024), float("nan"), device=dev)
+    dp = dk.clone()
+    k = solve_mega.solve_mega_cuda(*ins, PROD, diag=dk)
+    p = solve_mega.solve_mega_plain(*ins, PROD, diag=dp)
+    torch.cuda.synchronize()
+    same = (k[4] == p[4]) & (k[3] == p[3])
+    assert float(same.float().mean()) >= 0.99
+    rel = ((dk - dp).abs() / (1.0 + dp.abs()))[:, same]
+    assert float(rel[:5].max()) <= 1e-4
+    assert float((dk[5, same] == dp[5, same]).float().mean()) >= 0.99

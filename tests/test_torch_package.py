@@ -58,8 +58,14 @@ def test_kernel_sources_ship_with_the_package():
 
     csrc = ROOT / "mpc_ros_tpu_torch" / "kernels" / "csrc"
     for name in ("solve_mega.cu", "backward_fused.cu", "forward.cu",
-                 "tiles.cuh"):
+                 "tiles.cuh", "async_copy.cuh"):
         assert (csrc / name).is_file(), name
+    # the kernels' only inline PTX is the asynchronous copies, in one
+    # header (a CPU rehearsal replaces it with plain copies)
+    for path in csrc.iterdir():
+        has_asm = "asm volatile" in path.read_text()
+        assert has_asm == (path.name == "async_copy.cuh"), path.name
+    assert set(_build.COMMON) == {"tiles.cuh", "async_copy.cuh"}
     # every kernel the build knows has its source, and its launcher is
     # defined there with the return type the ctypes binding expects
     assert set(_build.KERNELS) == {"solve_mega", "backward_fused", "forward"}

@@ -7,6 +7,7 @@ bit on both sides?
 
     git archive <commit> | tar -x -C build/other     # build/ is ignored
     python3 tools/compare_k1_builds.py build/other
+    python3 tools/compare_k1_builds.py --timing build/other [build/more ...]
 
 Each tree runs in its own process (both import the package by the same
 name) and leaves its outputs under $TMPDIR; the SASS of each variant is
@@ -15,6 +16,18 @@ encodings. A change that adds template options to K1 must leave the
 variants without them identical: NVPTX's choice of which a*b + c to fuse
 depends on the instruction order around it, so moving shared code changes
 the rounding. Prints one line per comparison and exits 1 on a difference.
+
+`--timing` times this tree's K1 against one or more other trees' in one
+run on one card, on the same inputs: the N=30 main path (B=524,288), the
+setpoint-profile path (B=524,288), and both compact passes of the
+obstacle path (N=30, B=524,288, K=4) and of the N=48 path (B=131,072),
+each the median of `LAUNCHES` launches with the SM clock and power
+before and after (`chip_smoke.device_window`), the trees run in turns (the
+others, this, this, the others in reverse). It then holds this tree's
+outputs against each other's under `chip_smoke.py`'s gates (the
+single-pass rule; the compact rule for the compact schedules, with
+acceptance ties apart on the obstacle path), since a redesign changes the
+machine code on purpose. Exits 1 on a broken gate.
 """
 
 from __future__ import annotations
@@ -60,6 +73,155 @@ def run_tree(root: str, out: str) -> None:
     torch.save(saved, out)
 
 
+# --timing: launches per timed window, and the cases: (case, config name
+# in chip_smoke, seed, batch, blobs per lane,
+# setpoint profile, compact)
+LAUNCHES = 5
+CASES = [("n30", "PROD", 1, "B_MAIN", 0, False, False),
+         ("setpoints", "PROD", 19, "B_MAIN", 0, True, False),
+         ("blobs", "OBST", 16, "B_MAIN", 4, False, True),
+         ("n48", "LONG", 7, "B_LONG", 0, False, True)]
+
+
+def make_inputs(path: str) -> None:
+    """The --timing cases' inputs, made once by this tree's chip_smoke
+    helpers and saved for both trees."""
+    import torch
+
+    import chip_smoke as cs
+    from mpc_ros_tpu_torch.solver.batch_lane import lane_inputs
+
+    dev = torch.device("cuda", 0)
+    saved = {}
+    for name, cfg_name, seed, b_name, K, refs, _ in CASES:
+        cfg, B = getattr(cs, cfg_name), getattr(cs, b_name)
+        z0s, coeffs = cs.scenarios(seed, B, dev)
+        ins = lane_inputs(z0s, coeffs, cs.params(B, dev, False), cfg)
+        saved[name] = {
+            "cfg": cfg, "ins": [a.cpu() for a in ins],
+            "blobs": (None if not K else [
+                b.cpu() for b in cs.blob_field(seed, B, K, dev).lane()]),
+            "refs": (None if not refs else cs.lane_major(
+                cs.ramp_refs(seed, B, cfg.n_steps, dev)).cpu())}
+    torch.save(saved, path)
+
+
+def time_tree(root: str, inputs: str, out: str) -> None:
+    """In a child process: `root`'s K1 on the saved inputs, each case's
+    launches timed (per pass for the compact cases) by this tree's
+    `chip_smoke.device_window` and its outputs saved. Uses only the
+    package API both trees share."""
+    sys.path.insert(0, root)
+    import importlib.util
+
+    import torch
+
+    from mpc_ros_tpu_torch.kernels import _build, solve_mega
+
+    assert Path(solve_mega.__file__).resolve().is_relative_to(
+        Path(root).resolve())
+    # this tree's timing window, over `root`'s package
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", Path(__file__).resolve().parents[1]
+        / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    dev = torch.device("cuda", 0)
+    data = torch.load(inputs, weights_only=False)
+    cases = []
+    for name, _, _, _, K, refs, compact in CASES:
+        cfg = data[name]["cfg"]
+        cfgs = ([solve_mega.compact_pass1_cfg(cfg), cfg] if compact
+                else [cfg])
+        # the tail resolves the pass-2 knobs (the long-horizon pair)
+        cases.append((name, cfg, cfgs, K, refs, compact))
+    pairs = set()
+    for _, cfg, cfgs, K, refs, compact in cases:
+        for c in cfgs:
+            pairs.add(("solve_mega", solve_mega.resolve_knobs(
+                c, torch.float32, n_blobs=K, has_setp=refs).variant))
+    _build.build_many(sorted(pairs))
+
+    def window(fn) -> dict:
+        return cs.device_window(fn, LAUNCHES)
+
+    res = {}
+    for name, cfg, cfgs, K, refs, compact in cases:
+        d = data[name]
+        ins = [a.to(dev) for a in d["ins"]]
+        blobs = None if d["blobs"] is None else [b.to(dev)
+                                                 for b in d["blobs"]]
+        rf = None if d["refs"] is None else d["refs"].to(dev)
+        ms = {}
+        if compact:
+            p1 = cfgs[0]
+            ms["pass1"] = window(lambda: solve_mega.solve_mega_cuda(
+                *ins, p1, blobs=blobs, refs=rf))
+            out1 = solve_mega.solve_mega_cuda(*ins, p1, blobs=blobs, refs=rf)
+            tail = solve_mega.compact_tail(ins, out1, cfg, blobs, rf)
+            ms["tail"] = window(lambda: solve_mega.solve_mega_cuda(
+                *tail.ins, tail.cfg, resume=tail.resume, blobs=tail.blobs,
+                refs=tail.refs))
+            outs = solve_mega.solve_mega_scheduled(*ins, cfg, blobs=blobs,
+                                                   refs=rf)
+        else:
+            ms["kernel"] = window(lambda: solve_mega.solve_mega_cuda(
+                *ins, cfg, blobs=blobs, refs=rf))
+            outs = solve_mega.solve_mega_cuda(*ins, cfg, blobs=blobs,
+                                              refs=rf)
+        torch.cuda.synchronize()
+        print(f"{root}: {name} median ms "
+              f"{ {k: w['median_ms'] for k, w in ms.items()} }", flush=True)
+        res[name] = {"ms": ms, "n_steps": cfg.n_steps,
+                     "outs": [None] + [o.cpu() for o in outs[1:]]}
+    torch.save(res, out)
+
+
+def timing(others: list) -> int:
+    """--timing: this tree and the others in turns on the same inputs
+    (the others, this, this, the others in reverse), then this tree's
+    outputs held against each other tree's at chip_smoke's gates."""
+    import torch
+
+    here = str(Path(__file__).resolve().parents[1])
+    sys.path.insert(0, here)
+    import chip_smoke as cs
+
+    cs.CARD = cs.card_line()
+    print(cs.CARD, flush=True)
+    tmp = tempfile.mkdtemp()
+    inputs = os.path.join(tmp, "inputs.pt")
+    subprocess.run([sys.executable, __file__, "--make-inputs", inputs],
+                   check=True)
+    trees = [(f"other{i}", o) for i, o in enumerate(others)]
+    order = trees + [("this", here)] * 2 + trees[::-1]
+    runs = []
+    for n, (name, root) in enumerate(order):
+        out = os.path.join(tmp, f"{n}.pt")
+        subprocess.run([sys.executable, __file__, "--time-tree",
+                        os.path.abspath(root), inputs, out], check=True)
+        runs.append((name, torch.load(out, weights_only=False)))
+    broke = False
+    for case, _, _, _, K, _, compact in CASES:
+        times, clocks = {}, {}
+        for name, r in runs:
+            for part, w in r[case]["ms"].items():
+                times.setdefault(f"{name}.{part}", []).append(w["median_ms"])
+                clocks.setdefault(f"{name}.{part}", []).append(
+                    {k: w[k] for k in ("min_ms", "max_ms", "sm_mhz",
+                                       "power_w")})
+        this = dict(runs)["this"][case]
+        gates = {}
+        for name, root in trees:
+            g = cs.outputs_gates(this["outs"], dict(runs)[name][case]["outs"],
+                                 this["n_steps"], compact, ties=K > 0)
+            broke |= not g["ok"]
+            gates[root] = g
+        cs.emit("k1_timing", case=case, trees=dict(trees),
+                median_ms=times, windows=clocks, gates_this_vs_other=gates)
+    return 1 if broke else 0
+
+
 def sass(lib: str) -> list:
     cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                      "bin", "cuobjdump")
@@ -74,8 +236,18 @@ def main(argv) -> int:
     if len(argv) == 3 and argv[0] == "--tree":
         run_tree(argv[1], argv[2])
         return 0
+    if len(argv) == 2 and argv[0] == "--make-inputs":
+        sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+        make_inputs(argv[1])
+        return 0
+    if len(argv) == 4 and argv[0] == "--time-tree":
+        time_tree(*argv[1:])
+        return 0
+    if len(argv) >= 2 and argv[0] == "--timing":
+        return timing(argv[1:])
     if len(argv) != 1:
-        raise SystemExit("usage: compare_k1_builds.py OTHER_TREE")
+        raise SystemExit("usage: compare_k1_builds.py OTHER_TREE | "
+                         "--timing OTHER_TREE [OTHER_TREE ...]")
     import torch
 
     here = str(Path(__file__).resolve().parents[1])
@@ -85,7 +257,8 @@ def main(argv) -> int:
         outs[name] = os.path.join(tmp, f"{name}.pt")
         subprocess.run([sys.executable, __file__, "--tree",
                         os.path.abspath(root), outs[name]], check=True)
-    a, b = (torch.load(outs[n]) for n in ("other", "this"))
+    a, b = (torch.load(outs[n], weights_only=False)
+            for n in ("other", "this"))
     differ = False
     for key in a:
         if key == "libs":
