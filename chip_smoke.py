@@ -25,12 +25,19 @@ them and never falls back to the CPU. Phases, one output line each:
  6. the two-kernel route's kernels — the fused backward (K4) and the fused
     line search (K5) — against their plain versions on the inputs of a
     real SQP iteration (iteration 1, and the state after 3 iterations,
-    where mu and act vary across lanes) at B=8192 and B=524,288, then the
-    route end to end against the route with the plain versions;
+    where mu and act vary across lanes) at B=8192 and B=524,288, K5's
+    second pass per lane against the design's rule on the plain version's
+    candidates (`forward.second_pass_plain`), then the route end to end
+    against the route with the plain versions; then (6b) lanes planted
+    with NaN, inf or an overflowing coefficient through K4, K5 (B=1,024)
+    and K1 (N=30, B=8,192) against the plain versions;
  7. the two-kernel main path: `batch_solve_lane(backward="pallas")` at
-    B=524,288 — solves/s, K4/K5 time per launch, launches per solve
-    (= iterations run), converged fraction, the plain route's time, and
-    the route against the whole-solve kernel in its matching variant;
+    B=524,288 — solves/s, K4 time per launch, K5 time on the inputs of
+    each of a solve's iterations (act share, second-pass lanes and
+    sectors, design bytes and rate, bound) and summed per solve, launches
+    per solve (= iterations run), converged fraction, the plain route's
+    time, and the route against the whole-solve kernel in its matching
+    variant;
  8. serving through the route: 131,072 robots x 3 cycles;
  9. the solve kernel's resume state and per-block exit against its plain
     version at the long horizon (N=48, cap 22, the long-horizon pair), at
@@ -181,11 +188,12 @@ F32_FLOP_PER_S = 67e12
 # multiply, a division, a sin or a cos each one operation; the box QP's
 # nine-combo enumeration ~180): the fused backward ~1,210 per stage; the
 # line search ~100 per candidate and stage plus ~125 per stage of the
-# winner re-roll; the whole-solve kernel per SQP iteration and stage
-# ~1,020 in the backward (row 4 skipped, no trig) and ~110 per line-search
-# candidate (rotation-composition trig), and per stage of an accepted
-# step's re-roll ~60: a replayed rollout step, the dynamics 22, the
-# rotation composition 32, se and ce 6 (no feedback, clamp or blend).
+# winner's re-roll, on the lanes that run it; the whole-solve kernel per
+# SQP iteration and stage ~1,020 in the backward (row 4 skipped, no
+# trig) and ~110 per line-search candidate (rotation-composition trig),
+# and per stage of an accepted step's re-roll ~60: a replayed rollout
+# step, the dynamics 22, the rotation composition 32, se and ce 6 (no
+# feedback, clamp or blend).
 FLOP_BWD_STAGE = 1210
 FLOP_FWD_CAND_STAGE = 100
 FLOP_FWD_REROLL_STAGE = 125
@@ -720,6 +728,34 @@ def acceptance(fk, fp, cost_prev, act) -> dict:
             "agree": agree}
 
 
+def second_pass_check(sec, fi, fk, fp) -> dict:
+    """The line search's `second` output (the second pass each lane took,
+    plus 4 * its winning candidate) against what the design computes from
+    the plain version's candidates (`forward.second_pass_plain`): equal on
+    every lane where both sides pick the same candidate, and the pass
+    equal on every inactive lane (it does not depend on the candidate
+    there); on active lanes the candidates agree, or differ at a tie
+    (TIE_REL, as `acceptance`), on >= LANE_FRAC of them. Both sides'
+    counts of lanes and 32-byte sectors per pass are reported."""
+    want = forward.second_pass_plain(*fi, n_alpha=N_ALPHA)
+    cost_prev, on = fi[9], fi[10] > 0.5
+    same = (sec // 4) == (want // 4)
+    gain = torch.maximum(cost_prev - fk[2], cost_prev - fp[2])
+    tie = ~same & (gain <= TIE_REL * (1.0 + cost_prev.abs()))
+    rec = {"kernel": forward.second_pass_counts(sec),
+           "plain": forward.second_pass_counts(want),
+           "same_candidate_active": float(same[on].float().mean()),
+           "same_or_tie_active": float((same | tie)[on].float().mean()),
+           "codes_equal_where_same": bool(torch.equal(sec[same],
+                                                      want[same])),
+           "pass_equal_inactive": bool(torch.equal(sec[~on] % 4,
+                                                   want[~on] % 4))}
+    rec["counts_equal"] = rec["kernel"] == rec["plain"]
+    rec["ok"] = (rec["codes_equal_where_same"] and rec["pass_equal_inactive"]
+                 and rec["same_or_tie_active"] >= LANE_FRAC)
+    return rec
+
+
 def stage_kernels_vs_plain(dev) -> dict:
     """Phase 6: K4 and K5 against their plain versions on the inputs of
     SQP iterations 1 and 4 of the route, then the route against the route
@@ -740,11 +776,13 @@ def stage_kernels_vs_plain(dev) -> dict:
                 b_ok = float(lanes_within(zip(bk, bp), LANE_TOL)
                              .float().mean())
                 fi = sqp.forward_inputs(bp[0], bp[1])
-                fk = forward.forward_cuda(*fi, n_alpha=N_ALPHA)
+                sec = torch.empty(B, dtype=torch.int8, device=dev)
+                fk = forward.forward_cuda(*fi, n_alpha=N_ALPHA, second=sec)
                 fp, fp_s = host_s(lambda: forward.forward_plain(
                     *fi, n_alpha=N_ALPHA))
                 act = fi[-1]
                 acc = acceptance(fk, fp, fi[9], act)
+                sp = second_pass_check(sec, fi, fk, fp)
                 agree = acc.pop("agree")
                 f_errs = {n: errors(k[..., agree], q[..., agree])
                           for n, k, q in zip(("ss", "us", "cost"), fk[:3],
@@ -761,14 +799,15 @@ def stage_kernels_vs_plain(dev) -> dict:
                      backward=b_errs, backward_lanes_within=b_ok,
                      forward=f_errs, forward_lanes_within=f_ok,
                      accepted_agreement=acc,
-                     accepted_frac=float(fp[3].mean()),
+                     accepted_frac=float(fp[3].mean()), second_pass=sp,
                      tol={"lane": LANE_TOL, "lane_frac": LANE_FRAC,
                           "tie_rel": TIE_REL})
-                if min(b_ok, f_ok, acc_gate) < LANE_FRAC:
+                if min(b_ok, f_ok, acc_gate) < LANE_FRAC or not sp["ok"]:
                     raise SystemExit(
                         f"K4/K5 disagree with their plain versions (B={B}, "
                         f"iteration {it + 1}): lanes within tolerance "
-                        f"{b_ok} / {f_ok}, accepted agreement {acc}")
+                        f"{b_ok} / {f_ok}, accepted agreement {acc}, "
+                        f"second pass {sp}")
                 out["bwd_err"] = max(out["bwd_err"],
                                      b_errs["ks"]["max_abs"],
                                      b_errs["Ks"]["max_abs"])
@@ -795,6 +834,128 @@ def stage_kernels_vs_plain(dev) -> dict:
             out["plain_route_s"] = rp_s
             out["route_max_du"] = g["max_du"]
     return out
+
+
+# lanes planted with NaN, inf or an overflowing coefficient
+# (`plant_nonfinite`): ten of B_NONFINITE for K4/K5, of B_VERIFY for K1
+B_NONFINITE = 1024
+
+
+def nonfinite_lanes(dev) -> dict:
+    """Phase 6b: lanes with NaN or inf in ss, ks, Ks and the coefficients
+    (or 1e30 in the leading coefficient) against the plain versions, which
+    propagate NaN through clip and max as jnp.clip does: K4 and K5 on
+    iteration 1's route inputs (B=1,024), K1 in its production variant
+    (N=30, B=8,192; NaN in the initial state instead of ss). On the
+    planted lanes NaN and inf where the plain version has them and the
+    finite values within LANE_TOL; every other lane bit for bit as on the
+    clean inputs (`nonfinite_agreement`). K1's re-roll replays only
+    accepted steps (no multiply blend), so its trajectory keeps the last
+    accepted iterate where the plain version blends a non-finite rejected
+    rollout in as NaN (ROADMAP Queue 3): for K1 the scalar outputs are
+    held to the rule, the trajectories to non-finite entries only where
+    the plain version has them, and the first parting lane is recorded."""
+    # imported here: tools/compare_k1_builds.py loads this file over older
+    # trees' packages, which lack these helpers
+    from mpc_ros_tpu_torch.testing import nonfinite_agreement, plant_nonfinite
+
+    lanes = [3 + (B_NONFINITE // 10) * i for i in range(10)]
+    z0s, coeffs = scenarios(3, B_NONFINITE, dev)
+    sqp = LaneSQP(z0s, coeffs, params(B_NONFINITE, dev, False), ROUTE,
+                  two_kernel=two_kernel_stages(plain=True))
+    bi = sqp.backward_inputs()
+    fi = sqp.forward_inputs(*backward_fused.backward_fused_plain(*bi)[:2])
+    out = {}
+    for name, clean, names, run_k, run_p in (
+            ("forward", fi, ("ss", "us", "ks", "Ks", "coeffs"),
+             lambda a: forward.forward_cuda(*a, n_alpha=N_ALPHA),
+             lambda a: forward.forward_plain(*a, n_alpha=N_ALPHA)),
+            ("backward_fused", bi, ("ss", "us", "coeffs"),
+             lambda a: backward_fused.backward_fused_cuda(*a),
+             lambda a: backward_fused.backward_fused_plain(*a))):
+        planted = plant_nonfinite(
+            {n: a for n, a in zip(names, clean) if n != "us"}, lanes)
+        ins = tuple(planted.get(n, a) for n, a in zip(names, clean)) + tuple(
+            clean[len(names):])
+        out[name] = nonfinite_agreement(run_k(ins), run_p(ins),
+                                        run_k(clean), lanes, LANE_TOL)
+    k1_lanes = [4 + (B_VERIFY // 10) * i for i in range(10)]
+    z0s, coeffs = scenarios(11, B_VERIFY, dev)
+    ins = lane_inputs(z0s, coeffs, params(B_VERIFY, dev, False), PROD)
+    planted = plant_nonfinite({"z": ins[0], "coeffs": ins[1]}, k1_lanes)
+    bad = (planted["z"], planted["coeffs"]) + tuple(ins[2:])
+    k = solve_mega.solve_mega_cuda(*bad, PROD)
+    p = solve_mega.solve_mega_plain(*bad, PROD)
+    clean = solve_mega.solve_mega_cuda(*ins, PROD)
+    scalars = nonfinite_agreement(k[2:], p[2:], clean[2:], k1_lanes,
+                                  LANE_TOL)
+    traj = nonfinite_agreement(k[:2], p[:2], clean[:2], k1_lanes, LANE_TOL)
+    # every non-finite trajectory entry of the kernel is non-finite in the
+    # plain version
+    within = all(bool((a[..., k1_lanes].isfinite()
+                       | ~b[..., k1_lanes].isfinite()).all())
+                 for a, b in zip(k[:2], p[:2]))
+    parted = [i for i in k1_lanes if not all(
+        torch.equal(a[..., i].isnan(), b[..., i].isnan())
+        for a, b in zip(k[:2], p[:2]))]
+    witness = None
+    if parted:
+        i = parted[0]
+        witness = {"lane": i, "z": planted["z"][:, i].tolist(),
+                   "coeffs": planted["coeffs"][:, i].tolist()}
+        for n, a, b in zip(("ss", "us"), k[:2], p[:2]):
+            witness[n] = {side: {"nan": int(v[..., i].isnan().sum()),
+                                 "inf": int(v[..., i].isinf().sum()),
+                                 "finite": int(v[..., i].isfinite().sum())}
+                          for side, v in (("kernel", a), ("plain", b))}
+    out["solve_mega"] = {"scalars": scalars, "trajectory": traj,
+                         "kernel_nonfinite_within_plain": within,
+                         "parted_lanes": parted, "witness": witness}
+    out["solve_mega"]["ok"] = (scalars["ok"] and traj["others_unchanged"]
+                               and traj["max_rel"] <= LANE_TOL and within)
+    emit("nonfinite_lanes", lanes=lanes, k1_lanes=k1_lanes, **out)
+    for name, rec in out.items():
+        if not rec["ok"] or (name != "solve_mega"
+                             and not rec["planted_lanes_with_nan"]):
+            raise SystemExit(f"{name} on non-finite lanes disagrees with "
+                             f"its plain version: {rec}")
+    return out
+
+
+def forward_per_iteration(sqp, its: int) -> list:
+    """K5 on the inputs of each of a route solve's `its` iterations (made
+    by the route's own kernels, `sqp` advanced one iteration after each):
+    the median of a window (`device_window`), the act share, the lanes and
+    32-byte sectors that took each second pass (the kernel's `second`
+    output), the bytes the design moves (`forward.design_bytes`) and the
+    rate achieved, and the bound with the re-roll's operations counted on
+    the lanes that run it."""
+    T = ROUTE.n_controls
+    rows = []
+    for it in range(its):
+        bk = backward_fused.backward_fused_cuda(*sqp.backward_inputs())
+        fi = sqp.forward_inputs(bk[0], bk[1])
+        B, P = fi[0].shape[-1], fi[4].shape[0]
+        win = device_window(
+            lambda: forward.forward_cuda(*fi, n_alpha=N_ALPHA))
+        sec = torch.empty(B, dtype=torch.int8, device=fi[0].device)
+        fk = forward.forward_cuda(*fi, n_alpha=N_ALPHA, second=sec)
+        sp = forward.second_pass_counts(sec)
+        nbytes = B * forward.design_bytes(T, P, sp["reroll_sector_share"],
+                                          sp["rewrite_sector_share"])
+        bound = bound_ms(list(fi) + list(fk), T * (
+            N_ALPHA * FLOP_FWD_CAND_STAGE * B
+            + FLOP_FWD_REROLL_STAGE * sp["reroll_lanes"]))
+        rows.append({"iteration": it + 1, "median_ms": win["median_ms"],
+                     "act_frac": float(fi[10].mean()),
+                     "accepted_frac": float(fk[3].mean()), **sp,
+                     "design_gb": nbytes / 1e9,
+                     "achieved_tb_per_s": nbytes / win["median_ms"] / 1e9,
+                     "bound_ms": bound[0], "bound_by": bound[1],
+                     "window": win})
+        del bk, fi, fk
+        sqp.step()
+    return rows
 
 
 def route_main_path(dev, plain_route_s: float) -> dict:
@@ -848,14 +1009,12 @@ def route_main_path(dev, plain_route_s: float) -> dict:
     bwd_ms = device_window(
         lambda: backward_fused.backward_fused_cuda(*bi))["median_ms"]
     bk = backward_fused.backward_fused_cuda(*bi)
-    fi = sqp.forward_inputs(bk[0], bk[1])
-    fwd_ms = device_window(
-        lambda: forward.forward_cuda(*fi, n_alpha=N_ALPHA))["median_ms"]
-    fk = forward.forward_cuda(*fi, n_alpha=N_ALPHA)
     T = ROUTE.n_controls
     bwd_bound = bound_ms(list(bi) + list(bk), FLOP_BWD_STAGE * T * B_MAIN)
-    fwd_bound = bound_ms(list(fi) + list(fk), (
-        N_ALPHA * FLOP_FWD_CAND_STAGE + FLOP_FWD_REROLL_STAGE) * T * B_MAIN)
+    del bi, bk
+    fwd_its = forward_per_iteration(sqp, its)
+    fwd_ms = fwd_its[0]["median_ms"]
+    fwd_bound = (fwd_its[0]["bound_ms"], fwd_its[0]["bound_by"])
 
     # the whole-solve kernel in the route's matching variant, no gate
     mega = batch_solve_lane(z0s, coeffs, p, ROUTE_MEGA)
@@ -875,6 +1034,8 @@ def route_main_path(dev, plain_route_s: float) -> dict:
                bwd_ms=bwd_ms, fwd_ms=fwd_ms,
                bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1],
                fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
+               fwd_ms_per_route_solve=sum(r["median_ms"] for r in fwd_its),
+               fwd_iterations=fwd_its,
                plain_route_s=plain_route_s,
                plain_route_solves_per_s=B_MAIN / plain_route_s,
                vs_mega_matching_variant=vs_mega, launches=launches)
@@ -1711,7 +1872,9 @@ def main(argv) -> None:
     # blocks per SM of each variant of the whole-solve kernel
     emit("occupancy", variants={
         str(v): solve_mega.occupancy(v)
-        for k, v in sorted(pairs) if k == "solve_mega"})
+        for k, v in sorted(pairs) if k == "solve_mega"},
+        forward={str(v): forward.occupancy(v[0])
+                 for k, v in sorted(pairs) if k == "forward"})
     if seeds is not None:
         survey(dev, seeds)
         return
@@ -1721,6 +1884,7 @@ def main(argv) -> None:
     sv = serving(dev)
     max_err = max(max_err, mp["vs_plain"]["max_du"], sv["vs_plain"]["max_du"])
     st = stage_kernels_vs_plain(dev)
+    nonfinite_lanes(dev)
     rm = route_main_path(dev, st["plain_route_s"])
     route_serving(dev)
     long_err = long_kernel_vs_plain(dev)

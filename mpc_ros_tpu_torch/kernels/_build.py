@@ -78,7 +78,7 @@ KERNELS = {
     # variant (n_alpha,)
     "forward": Kernel(
         "forward.cu", "mpc_forward_f32",
-        (_P,) * 14 + (_I,) * 3 + (_F,) + (_I,) + (_P,),
+        (_P,) * 15 + (_I,) * 3 + (_F,) + (_I,) + (_P,),
         lambda variant: [f"-DFWD_NALPHA={int(variant[0])}"]),
 }
 

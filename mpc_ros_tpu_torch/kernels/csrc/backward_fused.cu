@@ -41,6 +41,7 @@ namespace bwd {
 
 using mega::boxqp;
 using mega::clampf;
+using mega::maxf;
 using mega::kPMax;
 using mega::polyder;
 
@@ -241,9 +242,9 @@ __global__ void __launch_bounds__(128) backward_fused_kernel(const Args a) {
     }
     dv1 = dv1 + (k0 * Qu0 + k1 * Qu1);
     dv2 = dv2 + 0.5f * (k0 * quk0 + k1 * quk1);
-    const float pg_t = fmaxf(fabsf(ut0 - clampf(ut0 - Qu0, lb0, ub0)),
-                             fabsf(ut1 - clampf(ut1 - Qu1, lb1, ub1)));
-    pg = fmaxf(pg, pg_t);
+    const float pg_t = maxf(fabsf(ut0 - clampf(ut0 - Qu0, lb0, ub0)),
+                            fabsf(ut1 - clampf(ut1 - Qu1, lb1, ub1)));
+    pg = maxf(pg, pg_t);
   }
   a.dv1[lane] = dv1;
   a.dv2[lane] = dv2;

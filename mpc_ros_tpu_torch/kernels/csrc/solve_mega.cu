@@ -446,9 +446,9 @@ __global__ void __launch_bounds__(kTile)
   // mu floor/ceiling and the relative-cost guards; pg is measured as 1/s
   float wscl, inv_wscl, mu_lo, mu_hi;
   if (ADAPT) {
-    wscl = fmaxf((pr.wcte + pr.weth + pr.wvel + pr.wang + pr.wacc +
-                  pr.wdang + pr.wdacc) * (float)(1.0 / 470.0),
-                 1.0f);
+    wscl = maxf((pr.wcte + pr.weth + pr.wvel + pr.wang + pr.wacc +
+                 pr.wdang + pr.wdacc) * (float)(1.0 / 470.0),
+                1.0f);
     inv_wscl = 1.0f / wscl;
     mu_lo = a.mu_min * wscl;
     mu_hi = a.mu_max * wscl;
@@ -820,9 +820,9 @@ __global__ void __launch_bounds__(kTile)
       dv2 = dv2 + 0.5f * (k0 * quk0 + k1 * quk1);
       // pg on the weight-scale-normalized gradient
       const float pg_t =
-          fmaxf(fabsf(ut0 - clampf(ut0 - Qu0 * inv_wscl, lb0, ub0)),
-                fabsf(ut1 - clampf(ut1 - Qu1 * inv_wscl, lb1, ub1)));
-      pg = fmaxf(pg, pg_t);
+          maxf(fabsf(ut0 - clampf(ut0 - Qu0 * inv_wscl, lb0, ub0)),
+               fabsf(ut1 - clampf(ut1 - Qu1 * inv_wscl, lb1, ub1)));
+      pg = maxf(pg, pg_t);
     }
 
     const float pred_decrease = -(dv1 + dv2);
@@ -916,7 +916,7 @@ __global__ void __launch_bounds__(kTile)
         cost_a = accs[al] + pr.term_cost(S[al]);
       if (a.diag != nullptr) a.diag[al * B + lane_i] = cost_a;
       const float improved = cost_a < cost ? 1.0f : 0.0f;
-      const float take = improved * (1.0f - fminf(picked, 1.0f));
+      const float take = improved * (1.0f - minf(picked, 1.0f));
       picked = picked + take;
       alpha_sel = alpha_sel + take * (1.0f / (float)(1 << al));
       cost_sel = take > 0.5f ? cost_a : cost_sel;
@@ -926,7 +926,7 @@ __global__ void __launch_bounds__(kTile)
       a.diag[NLS * B + lane_i] = cost;
       a.diag[(NLS + 1) * B + lane_i] = alpha_sel;
     }
-    const float accepted = fminf(picked, 1.0f);
+    const float accepted = minf(picked, 1.0f);
     const float upd = accepted * act;
 
     // ---- the winner's re-roll: its recorded controls replayed from s0,
@@ -964,8 +964,8 @@ __global__ void __launch_bounds__(kTile)
 
     // ---- per-lane bookkeeping ----
     const bool on = act > 0.5f;
-    const float mu2 = upd > 0.5f ? fmaxf(mu / a.mu_factor, mu_lo)
-                      : on       ? fminf(mu * a.mu_factor, mu_hi)
+    const float mu2 = upd > 0.5f ? maxf(mu / a.mu_factor, mu_lo)
+                      : on       ? minf(mu * a.mu_factor, mu_hi)
                                  : mu;
     const float small_step =
         accepted *
@@ -977,12 +977,12 @@ __global__ void __launch_bounds__(kTile)
     // under inflated mu it is a stall only if the step was also rejected
     const float mu_open = mu <= mu_lo * a.mu_factor ? 1.0f : 0.0f;
     const float converged_now =
-        fmaxf(fmaxf(pg < a.tol_grad ? 1.0f : 0.0f, n_small2 >= 2.0f ? 1.0f : 0.0f),
-              tiny_model * mu_open);
+        maxf(maxf(pg < a.tol_grad ? 1.0f : 0.0f, n_small2 >= 2.0f ? 1.0f : 0.0f),
+             tiny_model * mu_open);
     const float stalled =
-        fmaxf((1.0f - accepted) * (mu2 >= mu_hi ? 1.0f : 0.0f),
-              tiny_model * (1.0f - mu_open) * (1.0f - accepted));
-    done = on ? fmaxf(converged_now, stalled) : done;
+        maxf((1.0f - accepted) * (mu2 >= mu_hi ? 1.0f : 0.0f),
+             tiny_model * (1.0f - mu_open) * (1.0f - accepted));
+    done = on ? maxf(converged_now, stalled) : done;
     conv = on ? converged_now : conv;
     gnorm = on ? pg : gnorm;
     iters = iters + act;

@@ -15,10 +15,36 @@ namespace mega {
 // coefficients sit in registers, indexed only by unrolled constants.
 constexpr int kPMax = 8;
 
-__device__ __forceinline__ float pos(float x) { return fmaxf(x, 0.0f); }
+// max(a, b) and min(a, b) that return NaN when either operand is NaN, as
+// torch.maximum / torch.minimum / torch.clamp and jnp.maximum / jnp.clip
+// do (fmaxf / fminf return the other operand). On the card one PTX
+// max.NaN / min.NaN instruction each (sm_80 and later); elsewhere (a host
+// compiler rehearsing the kernel) the same rule in C.
+__device__ __forceinline__ float maxf(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  return (a != a || b != b) ? a + b : fmaxf(a, b);
+#endif
+}
 
+__device__ __forceinline__ float minf(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  return (a != a || b != b) ? a + b : fminf(a, b);
+#endif
+}
+
+__device__ __forceinline__ float pos(float x) { return maxf(x, 0.0f); }
+
+// clip(x, lo, hi) = min(max(x, lo), hi), NaN in any operand giving NaN
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
-  return fminf(fmaxf(x, lo), hi);
+  return minf(maxf(x, lo), hi);
 }
 
 // f(x) = sum_i c[i] x^i, Horner from the top: acc = c[P-1];
@@ -117,7 +143,7 @@ __device__ __forceinline__ void boxqp(float a, float b, float c, float d,
   }
   float best = cv[0];
 #pragma unroll
-  for (int idx = 1; idx < 9; ++idx) best = fminf(best, cv[idx]);
+  for (int idx = 1; idx < 9; ++idx) best = minf(best, cv[idx]);
 
   float picked = 0.0f;
   k0 = k1 = 0.0f;

@@ -11,6 +11,7 @@ draw them.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .config import WEIGHT_NAMES
 
@@ -63,3 +64,63 @@ def numpy_refs(seed: int, batch: int, n_steps: int, noise: float = 0.1,
     base = np.stack([0.02 * np.sin(2.0 * np.pi * t), np.zeros_like(t),
                      ref_vel + 0.2 - 0.5 * t], axis=-1)
     return base[None] + noise * rng.normal(size=(batch, n_steps, 3))
+
+
+# Entries planted by `plant_nonfinite`, one kind per lane in turn: (input
+# name, index before the lane axis from the input's shape, value).
+_PLANTS = (
+    ("ss", lambda a: (a.shape[0] // 2, 3), float("nan")),
+    ("ks", lambda a: (min(1, a.shape[0] - 1), 0), float("inf")),
+    ("Ks", lambda a: (a.shape[0] // 3, 1, 4), float("nan")),
+    ("coeffs", lambda a: (min(2, a.shape[0] - 1),), float("inf")),
+    ("z", lambda a: (3,), float("nan")),
+    ("ss", lambda a: (a.shape[0] - 1, 2), float("-inf")),
+    ("coeffs", lambda a: (a.shape[0] - 1,), 1e30),
+)
+
+
+def plant_nonfinite(named: dict, lanes) -> dict:
+    """Copies of the batch-last tensors in `named` (any of ss, ks, Ks,
+    coeffs, z: the initial state) with one entry of each given lane set to
+    NaN, +-inf, or 1e30 in the leading coefficient (finite, but its
+    rollouts overflow), the kinds that apply taken in turn."""
+    out = {k: v.clone() for k, v in named.items()}
+    kinds = [p for p in _PLANTS if p[0] in out]
+    for i, lane in enumerate(lanes):
+        name, where, value = kinds[i % len(kinds)]
+        out[name][where(out[name]) + (int(lane),)] = value
+    return out
+
+
+def nonfinite_agreement(kernel, plain, clean, lanes, tol: float) -> dict:
+    """A kernel against its plain version on inputs with planted lanes
+    (`plant_nonfinite`), output by output (each with the batch last): on
+    the planted lanes NaN where the plain version has NaN, the same
+    infinities, and the finite values within tol * (1 + |plain|); on every
+    other lane the kernel's outputs equal its outputs on the clean inputs
+    bit for bit. `ok` holds all of it."""
+    dev = plain[0].device
+    idx = torch.as_tensor([int(i) for i in lanes], device=dev)
+    others = torch.ones(plain[0].shape[-1], dtype=torch.bool, device=dev)
+    others[idx] = False
+    rec = {"nan_pattern": True, "inf_pattern": True, "max_rel": 0.0,
+           "others_unchanged": True}
+    with_nan = torch.zeros(len(idx), dtype=torch.bool, device=dev)
+    for k_all, p_all, c_all in zip(kernel, plain, clean):
+        k, p = k_all[..., idx].double(), p_all[..., idx].double()
+        rec["nan_pattern"] &= bool(torch.equal(k.isnan(), p.isnan()))
+        inf = p.isinf()
+        rec["inf_pattern"] &= bool(torch.equal(k.isinf(), inf)
+                                   and torch.equal(k[inf], p[inf]))
+        fin = p.isfinite() & k.isfinite()
+        if bool(fin.any()):
+            rel = ((k - p).abs() / (1.0 + p.abs()))[fin]
+            rec["max_rel"] = max(rec["max_rel"], float(rel.max()))
+        with_nan |= p.isnan().reshape(-1, len(idx)).any(dim=0)
+        rec["others_unchanged"] &= bool(torch.equal(k_all[..., others],
+                                                    c_all[..., others]))
+    rec["planted_lanes_with_nan"] = int(with_nan.sum())
+    rec["tol"] = tol
+    rec["ok"] = (rec["nan_pattern"] and rec["inf_pattern"]
+                 and rec["max_rel"] <= tol and rec["others_unchanged"])
+    return rec

@@ -8,6 +8,7 @@ bit on both sides?
     git archive <commit> | tar -x -C build/other     # build/ is ignored
     python3 tools/compare_k1_builds.py build/other
     python3 tools/compare_k1_builds.py --timing build/other [build/more ...]
+    python3 tools/compare_k1_builds.py --timing --only k5 build/other ...
 
 Each tree runs in its own process (both import the package by the same
 name) and leaves its outputs under $TMPDIR; the SASS of each variant is
@@ -28,6 +29,16 @@ outputs against each other's under `chip_smoke.py`'s gates (the
 single-pass rule; the compact rule for the compact schedules, with
 acceptance ties apart on the obstacle path), since a redesign changes the
 machine code on purpose. Exits 1 on a broken gate.
+
+The timing also holds the line-search kernel (K5, case `k5`): each tree
+runs the two-kernel route at B=524,288 (`chip_smoke.py`'s phase-7 shape)
+with the plain stages, so every tree sees the same inputs, and times its
+own K5 on the inputs of each of the 12 iterations; per tree run the
+median of each iteration and their sum per route solve. This tree's
+outputs on iterations 1, 4, 8 and 12 (every 16th lane) are held against
+each other tree's at phase 6's rule (`chip_smoke.acceptance`,
+`lanes_within`). `--only CASE,...` times only the cases named (n30,
+setpoints, blobs, n48, k5).
 """
 
 from __future__ import annotations
@@ -81,10 +92,69 @@ CASES = [("n30", "PROD", 1, "B_MAIN", 0, False, False),
          ("setpoints", "PROD", 19, "B_MAIN", 0, True, False),
          ("blobs", "OBST", 16, "B_MAIN", 4, False, True),
          ("n48", "LONG", 7, "B_LONG", 0, False, True)]
+# K5: the route's seed (phase 7), the iterations whose outputs are held
+# against each other tree's, and the lane stride of that sample
+K5_SEED = 4
+K5_HELD = (1, 4, 8, 12)
+K5_STRIDE = 16
 
 
-def make_inputs(path: str) -> None:
-    """The --timing cases' inputs, made once by this tree's chip_smoke
+def k5_case(cs, window) -> dict:
+    """In a tree's process: its K5 timed on the inputs of each iteration of
+    the route at B=524,288, the route run with the plain stages (the same
+    inputs for every tree), and its outputs on K5_HELD (every K5_STRIDE-th
+    lane, with the cost before the step and act)."""
+    import torch
+
+    from mpc_ros_tpu_torch.kernels import backward_fused, forward
+    from mpc_ros_tpu_torch.solver.batch_lane import (LaneSQP,
+                                                     two_kernel_stages)
+
+    dev = torch.device("cuda", 0)
+    z0s, coeffs = cs.scenarios(K5_SEED, cs.B_MAIN, dev)
+    sqp = LaneSQP(z0s, coeffs, cs.params(cs.B_MAIN, dev, False), cs.ROUTE,
+                  two_kernel=two_kernel_stages(plain=True))
+    ms, outs, act = {}, {}, {}
+    for it in range(1, cs.ROUTE.max_sqp_iters + 1):
+        bp = backward_fused.backward_fused_plain(*sqp.backward_inputs())
+        fi = sqp.forward_inputs(bp[0], bp[1])
+        ms[f"it{it}"] = window(
+            lambda: forward.forward_cuda(*fi, n_alpha=cs.N_ALPHA))
+        act[it] = float(fi[10].mean())
+        if it in K5_HELD:
+            fk = forward.forward_cuda(*fi, n_alpha=cs.N_ALPHA)
+            outs[it] = [o[..., ::K5_STRIDE].cpu()
+                        for o in list(fk) + [fi[9], fi[10]]]
+        del bp, fi
+        sqp.step()
+    return {"ms": ms, "act_frac": act, "outs": outs}
+
+
+def k5_gates(this: dict, other: dict) -> dict:
+    """This tree's K5 outputs against another's on K5_HELD, at phase 6's
+    rule: acceptance on all lanes at iteration 1 and on active lanes (or
+    a tie) later, trajectories and costs within LANE_TOL on >= LANE_FRAC of
+    the lanes whose acceptance agrees."""
+    import chip_smoke as cs
+
+    rec = {"ok": True}
+    for it in K5_HELD:
+        a, b = this["outs"][it], other["outs"][it]
+        acc = cs.acceptance(a, b, a[4], a[5])
+        agree = acc.pop("agree")
+        within = float(cs.lanes_within(
+            [(x[..., agree], y[..., agree]) for x, y in zip(a[:3], b[:3])],
+            cs.LANE_TOL).float().mean())
+        gate = acc["all_lanes"] if it == 1 else acc["active_agree_or_tie"]
+        ok = min(gate, within) >= cs.LANE_FRAC
+        rec[f"it{it}"] = {"acceptance": acc, "lanes_within": within,
+                          "ok": ok}
+        rec["ok"] &= ok
+    return rec
+
+
+def make_inputs(path: str, only: list) -> None:
+    """The --timing K1 cases' inputs, made once by this tree's chip_smoke
     helpers and saved for both trees."""
     import torch
 
@@ -94,6 +164,8 @@ def make_inputs(path: str) -> None:
     dev = torch.device("cuda", 0)
     saved = {}
     for name, cfg_name, seed, b_name, K, refs, _ in CASES:
+        if name not in only:
+            continue
         cfg, B = getattr(cs, cfg_name), getattr(cs, b_name)
         z0s, coeffs = cs.scenarios(seed, B, dev)
         ins = lane_inputs(z0s, coeffs, cs.params(B, dev, False), cfg)
@@ -106,7 +178,7 @@ def make_inputs(path: str) -> None:
     torch.save(saved, path)
 
 
-def time_tree(root: str, inputs: str, out: str) -> None:
+def time_tree(root: str, inputs: str, out: str, only: list) -> None:
     """In a child process: `root`'s K1 on the saved inputs, each case's
     launches timed (per pass for the compact cases) by this tree's
     `chip_smoke.device_window` and its outputs saved. Uses only the
@@ -130,12 +202,14 @@ def time_tree(root: str, inputs: str, out: str) -> None:
     data = torch.load(inputs, weights_only=False)
     cases = []
     for name, _, _, _, K, refs, compact in CASES:
+        if name not in only:
+            continue
         cfg = data[name]["cfg"]
         cfgs = ([solve_mega.compact_pass1_cfg(cfg), cfg] if compact
                 else [cfg])
         # the tail resolves the pass-2 knobs (the long-horizon pair)
         cases.append((name, cfg, cfgs, K, refs, compact))
-    pairs = set()
+    pairs = {("forward", (cs.N_ALPHA,))} if "k5" in only else set()
     for _, cfg, cfgs, K, refs, compact in cases:
         for c in cfgs:
             pairs.add(("solve_mega", solve_mega.resolve_knobs(
@@ -174,10 +248,15 @@ def time_tree(root: str, inputs: str, out: str) -> None:
               f"{ {k: w['median_ms'] for k, w in ms.items()} }", flush=True)
         res[name] = {"ms": ms, "n_steps": cfg.n_steps,
                      "outs": [None] + [o.cpu() for o in outs[1:]]}
+    if "k5" in only:
+        res["k5"] = k5_case(cs, window)
+        print(f"{root}: k5 median ms per route solve "
+              f"{sum(w['median_ms'] for w in res['k5']['ms'].values())}",
+              flush=True)
     torch.save(res, out)
 
 
-def timing(others: list) -> int:
+def timing(others: list, only: list) -> int:
     """--timing: this tree and the others in turns on the same inputs
     (the others, this, this, the others in reverse), then this tree's
     outputs held against each other tree's at chip_smoke's gates."""
@@ -191,18 +270,21 @@ def timing(others: list) -> int:
     print(cs.CARD, flush=True)
     tmp = tempfile.mkdtemp()
     inputs = os.path.join(tmp, "inputs.pt")
-    subprocess.run([sys.executable, __file__, "--make-inputs", inputs],
-                   check=True)
+    subprocess.run([sys.executable, __file__, "--make-inputs", inputs,
+                    ",".join(only)], check=True)
     trees = [(f"other{i}", o) for i, o in enumerate(others)]
     order = trees + [("this", here)] * 2 + trees[::-1]
     runs = []
     for n, (name, root) in enumerate(order):
         out = os.path.join(tmp, f"{n}.pt")
         subprocess.run([sys.executable, __file__, "--time-tree",
-                        os.path.abspath(root), inputs, out], check=True)
+                        os.path.abspath(root), inputs, out, ",".join(only)],
+                       check=True)
         runs.append((name, torch.load(out, weights_only=False)))
     broke = False
     for case, _, _, _, K, _, compact in CASES:
+        if case not in only:
+            continue
         times, clocks = {}, {}
         for name, r in runs:
             for part, w in r[case]["ms"].items():
@@ -219,6 +301,26 @@ def timing(others: list) -> int:
             gates[root] = g
         cs.emit("k1_timing", case=case, trees=dict(trees),
                 median_ms=times, windows=clocks, gates_this_vs_other=gates)
+    if "k5" in only:
+        per_solve, times, clocks = {}, {}, {}
+        for name, r in runs:
+            k5 = r["k5"]
+            per_solve.setdefault(name, []).append(
+                sum(w["median_ms"] for w in k5["ms"].values()))
+            for it, w in k5["ms"].items():
+                times.setdefault(f"{name}.{it}", []).append(w["median_ms"])
+                clocks.setdefault(f"{name}.{it}", []).append(
+                    {k: w[k] for k in ("min_ms", "max_ms", "sm_mhz",
+                                       "power_w")})
+        this = dict(runs)["this"]["k5"]
+        gates = {}
+        for name, root in trees:
+            g = k5_gates(this, dict(runs)[name]["k5"])
+            broke |= not g["ok"]
+            gates[root] = g
+        cs.emit("k5_timing", trees=dict(trees), act_frac=this["act_frac"],
+                ms_per_route_solve=per_solve, median_ms=times,
+                windows=clocks, gates_this_vs_other=gates)
     return 1 if broke else 0
 
 
@@ -236,18 +338,22 @@ def main(argv) -> int:
     if len(argv) == 3 and argv[0] == "--tree":
         run_tree(argv[1], argv[2])
         return 0
-    if len(argv) == 2 and argv[0] == "--make-inputs":
+    if len(argv) == 3 and argv[0] == "--make-inputs":
         sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-        make_inputs(argv[1])
+        make_inputs(argv[1], argv[2].split(","))
         return 0
-    if len(argv) == 4 and argv[0] == "--time-tree":
-        time_tree(*argv[1:])
+    if len(argv) == 5 and argv[0] == "--time-tree":
+        time_tree(*argv[1:4], argv[4].split(","))
         return 0
     if len(argv) >= 2 and argv[0] == "--timing":
-        return timing(argv[1:])
+        only = [c[0] for c in CASES] + ["k5"]
+        if argv[1] == "--only":
+            only, argv = argv[2].split(","), argv[2:]
+        return timing(argv[1:], only)
     if len(argv) != 1:
         raise SystemExit("usage: compare_k1_builds.py OTHER_TREE | "
-                         "--timing OTHER_TREE [OTHER_TREE ...]")
+                         "--timing [--only CASE,...] OTHER_TREE "
+                         "[OTHER_TREE ...]")
     import torch
 
     here = str(Path(__file__).resolve().parents[1])
