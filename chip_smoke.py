@@ -30,7 +30,8 @@ them and never falls back to the CPU. Phases, one output line each:
     candidates (`forward.second_pass_plain`), then the route end to end
     against the route with the plain versions; then (6b) lanes planted
     with NaN, inf or an overflowing coefficient through K4, K5 (B=1,024)
-    and K1 (N=30, B=8,192) against the plain versions;
+    and K1 (N=30, B=8,192, production and bicycle variants) against the
+    plain versions, every output held to one rule;
  7. the two-kernel main path: `batch_solve_lane(backward="pallas")` at
     B=524,288 — solves/s, K4 time per launch, K5 time on the inputs of
     each of a solve's iterations (act share, second-pass lanes and
@@ -87,7 +88,22 @@ them and never falls back to the CPU. Phases, one output line each:
     profiles) against the plain version at full width;
 20. the compact (N=48, cap 22) and sorted (N=30) schedules at B=16,384
     with per-lane blobs and profiles, each against the same schedule on
-    the plain version, compaction observed engaged.
+    the plain version, compaction observed engaged;
+21. the registry-generic engine, `engine.batch_solve` (the batch-first
+    single-scenario solver, `solver/ilqr.py`, plain PyTorch on the card),
+    at N=30, B=16,384, the production knobs: solves/s, ms per call
+    (median of WINDOW), mean iterations, converged fraction, host reads
+    per call, held against the XLA lane path and the whole-solve kernel
+    on the same inputs at the parity gates, for the diff drive and the
+    bicycle; then a `model_from_step` family (the tricycle of
+    tests/test_ddp.py), gated DDP against Gauss-Newton;
+22. per-lane profiles and one blob per lane through `batch_solve_lane` at
+    B=1,000 (off the kernel rule, so on the generic engine), its first 896
+    lanes against the kernel on the same lanes; the tricycle's tuning
+    sweep, 8 candidates x 2,000 scenarios, on `batch_solve_swept`;
+23. one scenario through `ilqr.solve` at N=30 and N=100, cold and warm,
+    the median wall time and the iterations, each against the same solve
+    in float64 on the CPU (relative cost <= 1e-3).
 
 Every timed window of the whole-solve kernel (phases 4, 5, 10-12, 16,
 18, 19) reports the median, min and max of WINDOW launches, the SM clock
@@ -845,16 +861,14 @@ def nonfinite_lanes(dev) -> dict:
     """Phase 6b: lanes with NaN or inf in ss, ks, Ks and the coefficients
     (or 1e30 in the leading coefficient) against the plain versions, which
     propagate NaN through clip and max as jnp.clip does: K4 and K5 on
-    iteration 1's route inputs (B=1,024), K1 in its production variant
-    (N=30, B=8,192; NaN in the initial state instead of ss). On the
+    iteration 1's route inputs (B=1,024), K1 in its production and
+    bicycle variants (N=30, B=8,192; NaN in the initial state instead of
+    ss). On the
     planted lanes NaN and inf where the plain version has them and the
     finite values within LANE_TOL; every other lane bit for bit as on the
-    clean inputs (`nonfinite_agreement`). K1's re-roll replays only
-    accepted steps (no multiply blend), so its trajectory keeps the last
-    accepted iterate where the plain version blends a non-finite rejected
-    rollout in as NaN (ROADMAP Queue 3): for K1 the scalar outputs are
-    held to the rule, the trajectories to non-finite entries only where
-    the plain version has them, and the first parting lane is recorded."""
+    clean inputs (`nonfinite_agreement`), K1's trajectories included: a
+    lane whose backward rows are not all finite takes the blended re-roll
+    (`solve_mega.replay_check`), as its plain version does."""
     # imported here: tools/compare_k1_builds.py loads this file over older
     # trees' packages, which lack these helpers
     from mpc_ros_tpu_torch.testing import nonfinite_agreement, plant_nonfinite
@@ -881,42 +895,17 @@ def nonfinite_lanes(dev) -> dict:
                                         run_k(clean), lanes, LANE_TOL)
     k1_lanes = [4 + (B_VERIFY // 10) * i for i in range(10)]
     z0s, coeffs = scenarios(11, B_VERIFY, dev)
-    ins = lane_inputs(z0s, coeffs, params(B_VERIFY, dev, False), PROD)
-    planted = plant_nonfinite({"z": ins[0], "coeffs": ins[1]}, k1_lanes)
-    bad = (planted["z"], planted["coeffs"]) + tuple(ins[2:])
-    k = solve_mega.solve_mega_cuda(*bad, PROD)
-    p = solve_mega.solve_mega_plain(*bad, PROD)
-    clean = solve_mega.solve_mega_cuda(*ins, PROD)
-    scalars = nonfinite_agreement(k[2:], p[2:], clean[2:], k1_lanes,
-                                  LANE_TOL)
-    traj = nonfinite_agreement(k[:2], p[:2], clean[:2], k1_lanes, LANE_TOL)
-    # every non-finite trajectory entry of the kernel is non-finite in the
-    # plain version
-    within = all(bool((a[..., k1_lanes].isfinite()
-                       | ~b[..., k1_lanes].isfinite()).all())
-                 for a, b in zip(k[:2], p[:2]))
-    parted = [i for i in k1_lanes if not all(
-        torch.equal(a[..., i].isnan(), b[..., i].isnan())
-        for a, b in zip(k[:2], p[:2]))]
-    witness = None
-    if parted:
-        i = parted[0]
-        witness = {"lane": i, "z": planted["z"][:, i].tolist(),
-                   "coeffs": planted["coeffs"][:, i].tolist()}
-        for n, a, b in zip(("ss", "us"), k[:2], p[:2]):
-            witness[n] = {side: {"nan": int(v[..., i].isnan().sum()),
-                                 "inf": int(v[..., i].isinf().sum()),
-                                 "finite": int(v[..., i].isfinite().sum())}
-                          for side, v in (("kernel", a), ("plain", b))}
-    out["solve_mega"] = {"scalars": scalars, "trajectory": traj,
-                         "kernel_nonfinite_within_plain": within,
-                         "parted_lanes": parted, "witness": witness}
-    out["solve_mega"]["ok"] = (scalars["ok"] and traj["others_unchanged"]
-                               and traj["max_rel"] <= LANE_TOL and within)
+    for name, cfg in (("solve_mega", PROD), ("solve_mega[bicycle]", BICYCLE)):
+        ins = lane_inputs(z0s, coeffs, params(B_VERIFY, dev, False), cfg)
+        planted = plant_nonfinite({"z": ins[0], "coeffs": ins[1]}, k1_lanes)
+        bad = (planted["z"], planted["coeffs"]) + tuple(ins[2:])
+        k = solve_mega.solve_mega_cuda(*bad, cfg)
+        p = solve_mega.solve_mega_plain(*bad, cfg)
+        clean = solve_mega.solve_mega_cuda(*ins, cfg)
+        out[name] = nonfinite_agreement(k, p, clean, k1_lanes, LANE_TOL)
     emit("nonfinite_lanes", lanes=lanes, k1_lanes=k1_lanes, **out)
     for name, rec in out.items():
-        if not rec["ok"] or (name != "solve_mega"
-                             and not rec["planted_lanes_with_nan"]):
+        if not rec["ok"] or not rec["planted_lanes_with_nan"]:
             raise SystemExit(f"{name} on non-finite lanes disagrees with "
                              f"its plain version: {rec}")
     return out
@@ -1824,6 +1813,263 @@ def schedules_blobs_refs(dev) -> float:
     return worst
 
 
+# The registry-generic engine (phases 21-23): `engine.batch_solve` over the
+# batch-first single-scenario solver at full width, B=16,384 (a tuning or
+# scenario-study batch: every SQP iteration is a few thousand small torch
+# ops, so the width amortizes their dispatch); the profile fallback at
+# B=1,000 (not whole tiles); the custom-family sweep, 8 x 2,000; one
+# scenario at N=30 and N=100 (the planner's per-cycle solve)
+B_ENGINE = 16384
+B_FALLBACK = 1000
+SWEEP_CUSTOM = (8, 2000)
+SINGLE_REPS = {30: 20, 100: 5}
+TRICYCLE = "tricycle_smoke"
+
+
+def result_gates(a, b, n_steps: int) -> dict:
+    """`verify.parity_gates` between two batch-major SolveResults."""
+    def host(r):
+        return (r.us.cpu().numpy(), r.cost.cpu().numpy(),
+                r.converged.cpu().numpy(), r.n_iters.cpu().numpy())
+    return parity_gates(*host(a), *host(b), n_steps)
+
+
+def register_tricycle() -> None:
+    """tests/test_ddp.py's custom family, built by `model_from_step` from a
+    step function alone: steering mildly coupled to speed."""
+    from mpc_ros_tpu_torch.models.base import model_from_step
+    from mpc_ros_tpu_torch.ops.poly import polyeval
+
+    def step(z, u, coeffs, dt, sign, p):
+        x, y, th, v, cte, eth = (z[..., i] for i in range(6))
+        w, a = u[..., 0], u[..., 1]
+        dt = torch.as_tensor(dt, dtype=z.dtype, device=z.device)
+        dth = w * (1.0 + 0.1 * v) * dt
+        return torch.stack([x + v * torch.cos(th) * dt,
+                            y + v * torch.sin(th) * dt, th + dth, v + a * dt,
+                            (polyeval(coeffs, x) - y)
+                            + sign * v * torch.sin(eth) * dt, eth + dth],
+                           dim=-1)
+
+    def bounds(p, dtype, device=None):
+        one = torch.ones(2, dtype=dtype, device=device)
+        return -one, one
+
+    model_from_step(TRICYCLE, step, bounds, allow_override=True)
+
+
+def engine_record(fn, B: int, reps: int = WINDOW):
+    """(result, record): `fn` run once to warm up, then `reps` times on the
+    host clock to a sync each; the median ms per solve call, solves/s, mean
+    iterations, converged fraction and host reads per call (the solver's
+    per-iteration read of "every lane done", `ilqr.host_reads`)."""
+    from mpc_ros_tpu_torch.solver import ilqr
+
+    res, _ = host_s(fn)
+    times = []
+    reads = ilqr.host_reads
+    for _ in range(reps):
+        res, sec = host_s(fn)
+        times.append(sec)
+    ms = statistics.median(times) * 1e3
+    return res, dict(batch=B, ms_per_call=ms, ms_runs=times,
+                     solves_per_s=B / (ms / 1e3),
+                     mean_iters=float(res.n_iters.float().mean()),
+                     max_iters=int(res.n_iters.max()),
+                     converged_frac=float(res.converged.float().mean()),
+                     host_reads_per_call=(ilqr.host_reads - reads) / reps)
+
+
+def engine_batch(dev) -> dict:
+    """Phase 21: `engine.batch_solve` (the batch-first `ilqr.solve`) at
+    N=30, B=16,384, f32, the production knobs, on the card: diff drive and
+    bicycle held against the XLA lane path (`backward="xla"`) and the
+    whole-solve kernel (`backward="mega"`) on the same inputs at the
+    parity gates; the `model_from_step` tricycle with the gated DDP
+    against Gauss-Newton (converged >= 0.98, relative cost < 1e-4, as
+    tests/test_ddp.py)."""
+    from mpc_ros_tpu_torch.engine import batch_solve
+
+    out = {}
+    z0s, coeffs = scenarios(21, B_ENGINE, dev)
+    p = params(B_ENGINE, dev, False)
+    for name, cfg in (("diff_drive", PROD), ("bicycle", BICYCLE)):
+        res, rec = engine_record(lambda: batch_solve(z0s, coeffs, p, cfg),
+                                 B_ENGINE)
+        check_result(res, B_ENGINE)
+        for other in ("xla", "mega"):
+            reset_launches()
+            r_o, sec = host_s(lambda: batch_solve_lane(
+                z0s, coeffs, p, dataclasses.replace(cfg, backward=other)))
+            g = result_gates(res, r_o, N_STEPS)
+            rec[f"vs_{other}"] = g
+            rec[f"{other}_ms"] = sec * 1e3
+            if other == "mega" and solve_mega.launches != 1:
+                raise SystemExit(f"engine {name}: the kernel comparison "
+                                 f"launched {solve_mega.launches} times")
+            if not g["ok"]:
+                raise SystemExit(f"engine.batch_solve ({name}) disagrees "
+                                 f"with the {other} path: {g}")
+        if rec["converged_frac"] < 0.99:
+            raise SystemExit(f"engine.batch_solve ({name}): converged "
+                             f"{rec['converged_frac']} < 0.99")
+        out[name] = rec
+    register_tricycle()
+    kw = dict(n_steps=N_STEPS, max_sqp_iters=40, ls_iters=5, tol_grad=1e-4,
+              model=TRICYCLE)
+    gn, gn_rec = engine_record(lambda: batch_solve(
+        z0s, coeffs, p, SolverConfig(**kw, ddp=False)), B_ENGINE, reps=1)
+    dd, dd_rec = engine_record(lambda: batch_solve(
+        z0s, coeffs, p, SolverConfig(**kw, ddp=True)), B_ENGINE, reps=1)
+    rel = float(((dd.cost - gn.cost).abs() / (1.0 + gn.cost.abs())).max())
+    out["tricycle"] = {"gn": gn_rec, "ddp": dd_rec, "max_rel_dcost": rel}
+    emit("engine_batch", **out)
+    if dd_rec["converged_frac"] < 0.98 or rel >= 1e-4:
+        raise SystemExit(f"the tricycle's DDP solve misses its gates: "
+                         f"{out['tricycle']}")
+    return out
+
+
+def profiles_off_kernel(dev) -> dict:
+    """Phase 22: per-lane profiles and blobs through `batch_solve_lane` at
+    B=1,000 (not whole tiles, so the dispatch takes the registry-generic
+    fallback), N=30, cap 30, its first 896 lanes held against the
+    whole-solve kernel on the same lanes at the single-pass gates; then a
+    tuning
+    sweep of the tricycle (a family the lane solver does not take), 8
+    candidates x 2,000 scenarios, on `batch_solve_swept`."""
+    from mpc_ros_tpu_torch.solver import ilqr
+
+    B = B_FALLBACK
+    # the obstacle ensemble's long tail takes cap 30 (OBST), single pass
+    cfg = dataclasses.replace(PROD, max_sqp_iters=OBST.max_sqp_iters)
+    z0s, coeffs = scenarios(22, B, dev)
+    p = params(B, dev, False)
+    refs = ramp_refs(22, B, N_STEPS, dev)
+    blobs = blob_field(22, B, 1, dev)
+    reads = ilqr.host_reads
+    reset_launches()
+    res, sec = host_s(lambda: batch_solve_lane(z0s, coeffs, p, cfg,
+                                               refs=refs, blobs=blobs))
+    if solve_mega.launches:
+        raise SystemExit("the profile fallback launched the kernel")
+    check_result(res, B)
+    m = B - B % 128
+    sub = GaussianObstacles(*(getattr(blobs, f)[:m]
+                              for f in ("cx", "cy", "gamma", "w")))
+    k1 = batch_solve_lane(z0s[:m], coeffs[:m], params(m, dev, False),
+                          dataclasses.replace(cfg, backward="mega"),
+                          refs=refs[:m], blobs=sub)
+    if solve_mega.launches != 1:
+        raise SystemExit("the kernel comparison did not launch the kernel")
+    head = type(res)(**{f.name: getattr(res, f.name)[:m]
+                        for f in dataclasses.fields(res)})
+    g = result_gates(head, k1, N_STEPS)
+    out = {"fallback": dict(batch=B, ms=sec * 1e3, solves_per_s=B / sec,
+                            converged_frac=float(res.converged.float()
+                                                 .mean()),
+                            mean_iters=float(res.n_iters.float().mean()),
+                            host_reads=ilqr.host_reads - reads,
+                            compared_lanes=m, vs_kernel=g)}
+    if not g["ok"]:
+        raise SystemExit(f"the profile fallback disagrees with the kernel: "
+                         f"{out['fallback']}")
+    register_tricycle()
+    n_cand, n_scen = SWEEP_CUSTOM
+    cands = sample_weight_candidates(torch.Generator(device=dev)
+                                     .manual_seed(23), n_cand, MPCParams())
+    cfg = SolverConfig(n_steps=N_STEPS, max_sqp_iters=12, tol_grad=1e-4,
+                       model=TRICYCLE)
+    sw, sec = host_s(lambda: tuning_sweep(
+        torch.Generator(device=dev).manual_seed(24), cands, n_scen, cfg))
+    out["sweep"] = dict(candidates=n_cand, scenarios=n_scen, s=sec,
+                        solves_per_s=n_cand * n_scen / sec,
+                        best_index=sw.best_index,
+                        converged_frac=sw.converged_frac.tolist(),
+                        mean_iters=sw.mean_iters.tolist())
+    emit("profiles_off_kernel", **out)
+    if not bool(torch.isfinite(sw.mean_cost).all()):
+        raise SystemExit(f"the custom-family sweep: {out['sweep']}")
+    return out
+
+
+def ilqr_stage_ms(z0, c, cfg) -> dict:
+    """The host-clock ms of each stage of one `ilqr` iteration on one
+    scenario's cold start (each to a sync): the linearization and cost
+    expansion, the terminal expansion, the autodiff DDP Hessians, the
+    backward pass and the multi-alpha forward pass; where a per-cycle
+    solve spends its time."""
+    from mpc_ros_tpu_torch.models.base import get_model
+    from mpc_ros_tpu_torch.solver import ilqr
+
+    p = MPCParams()
+    mdl = get_model(cfg.model)
+    z, cc = z0[None], c[None]
+    T = cfg.n_controls
+    dt = torch.as_tensor(p.dt, dtype=z.dtype, device=z.device)
+    us = torch.zeros((1, T, 2), dtype=z.dtype, device=z.device)
+    one = torch.ones((1, 2), dtype=z.dtype, device=z.device)
+    ss = ilqr._rollout_aug(z, us, cc, dt, 1.0, mdl, p)
+    out = {}
+    lin, out["linearize"] = host_s(lambda: ilqr._linearize_and_expand(
+        ss, us, cc, p, dt, 1.0, mdl))
+    term, out["terminal"] = host_s(lambda: ilqr._terminal_expansion(
+        ss[:, -1], p))
+    H, out["hessians"] = host_s(lambda: ilqr.step_hessians(
+        ss, us, cc, dt, 1.0, mdl, p))
+    mu = torch.full((1,), 1e-6, dtype=z.dtype, device=z.device)
+    gate = torch.ones((1,), dtype=z.dtype, device=z.device)
+    bw, out["backward"] = host_s(lambda: ilqr.backward_pass(
+        *lin, *term, us, -one, one, mu, H=H, ddp_gate_val=gate))
+    alphas = 0.5 ** torch.arange(cfg.ls_for(z.dtype), dtype=z.dtype,
+                                 device=z.device)
+    _, out["forward"] = host_s(lambda: ilqr.forward_pass_multi_alpha(
+        ss, us, bw[0], bw[1], alphas, z, cc, p, dt, -one, one, 1.0, mdl))
+    return {k: v * 1e3 for k, v in out.items()}
+
+
+def single_scenario(dev) -> dict:
+    """Phase 23: one scenario through `ilqr.solve` (z0 (6,)) at N=30 and
+    N=100, cold and warm-started (the next cycle: the predicted state one
+    step on, the solution shifted by one), the per-cycle solve of the
+    single-robot planner: the median wall time of SINGLE_REPS solves and
+    the iterations, each held against the same solve in float64 on the
+    CPU (relative cost <= 1e-3, the bar of tests/test_solver.py::
+    test_f32_close_to_f64); and the ms of each stage of one iteration
+    (`ilqr_stage_ms`)."""
+    from mpc_ros_tpu_torch.solver import ilqr
+
+    z0s, coeffs = scenarios(23, 1, dev)
+    z0, c = z0s[0], coeffs[0]
+    out = {}
+    for n, reps in SINGLE_REPS.items():
+        cfg = dataclasses.replace(PROD, n_steps=n,
+                                  max_sqp_iters=12 if n == 30 else 45)
+        cold, cold_rec = engine_record(
+            lambda: ilqr.solve(z0, c, MPCParams(), cfg), 1, reps)
+        z1 = cold.zs[1]
+        warm_u = torch.cat([cold.us[1:], cold.us[-1:]])
+        warm, warm_rec = engine_record(
+            lambda: ilqr.solve(z1, c, MPCParams(), cfg, u_init=warm_u), 1,
+            reps)
+        for rec, res, z, u in ((cold_rec, cold, z0, None),
+                               (warm_rec, warm, z1, warm_u)):
+            ref = ilqr.solve(z.double().cpu(), c.double().cpu(),
+                             MPCParams(), cfg,
+                             u_init=None if u is None else u.double().cpu())
+            rel = abs(float(res.cost) - float(ref.cost)) / (
+                1.0 + abs(float(ref.cost)))
+            rec.update(iters=int(res.n_iters), converged=bool(res.converged),
+                       f64_iters=int(ref.n_iters), rel_dcost_f64=rel)
+            if rel > 1e-3 or not bool(torch.isfinite(res.us).all()):
+                raise SystemExit(f"single scenario N={n} against float64: "
+                                 f"{rec}")
+        out[f"N={n}"] = {"cold": cold_rec, "warm": warm_rec,
+                         "stage_ms": ilqr_stage_ms(z0, c, cfg)}
+    emit("single_scenario", **out)
+    return out
+
+
 def build_pairs(survey: bool = False) -> set:
     """Every (kernel, variant) pair the phases launch (the survey's alone
     with `survey`): the whole-solve kernel's variants, then the fused
@@ -1899,6 +2145,9 @@ def main(argv) -> None:
     bk = bicycle_paths(dev)
     rf = main_path(dev, "refs_main_path", PROD, 19, with_refs=True)
     sched_err = schedules_blobs_refs(dev)
+    engine_batch(dev)
+    profiles_off_kernel(dev)
+    single_scenario(dev)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound):
         return {"name": name, "route": "cuda",

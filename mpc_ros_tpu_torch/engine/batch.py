@@ -1,12 +1,41 @@
-"""Batched scenario generation and cold starts (counterpart of
-`mpc_ros_tpu/engine/batch.py::make_random_scenarios` and
-`analytic_u_init`)."""
+"""Batched scenario solving over the registry-generic solver, scenario
+generation and cold starts (counterpart of `mpc_ros_tpu/engine/batch.py`).
+
+Two entry points run `solver.ilqr.solve`, which is batch-first:
+
+* `batch_solve`       — shared MPCParams across the batch (serving);
+* `batch_solve_swept` — per-scenario MPCParams, every leaf (B,)
+  (Monte-Carlo tuning sweeps).
+
+Any registered family runs here, `model_from_step` families included;
+`solver.batch_lane.batch_solve_lane` is the throughput path of the two
+lane-specialized families.
+"""
 
 from __future__ import annotations
 
 import torch
 
 from ..models.base import get_model
+from ..solver import ilqr
+from ..solver.types import SolveResult
+
+
+def batch_solve(z0s: torch.Tensor, coeffs: torch.Tensor, p, cfg,
+                u_init=None, refs=None, blobs=None) -> SolveResult:
+    """Solve B scenarios with shared params: z0s (B, 6), coeffs (B, P),
+    on z0s's device. `u_init` (B, T, 2) warm-starts; `refs` (B, N, 3) are
+    per-scenario setpoint profiles and `blobs` (a `GaussianObstacles`,
+    leaves (B, K)) per-scenario obstacles; the two compose."""
+    return ilqr.solve(z0s, coeffs, p, cfg, u_init=u_init, refs=refs,
+                      blobs=blobs)
+
+
+def batch_solve_swept(z0s: torch.Tensor, coeffs: torch.Tensor, ps,
+                      cfg) -> SolveResult:
+    """Solve B scenarios with per-scenario params (every MPCParams leaf
+    (B,))."""
+    return ilqr.solve(z0s, coeffs, ps, cfg)
 
 
 def make_random_scenarios(generator: torch.Generator, batch: int,

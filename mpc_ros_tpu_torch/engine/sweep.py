@@ -5,7 +5,9 @@ Sample candidate weight vectors, evaluate each on a common scenario set
 by solving (n_weights x n_scenarios) NMPC problems in one batch, and rank
 the candidates by a fixed evaluation metric. Per-scenario weights ride the
 batch lanes of `batch_solve_lane` (and through it the whole-solve kernel's
-packed parameters), so the whole sweep is one solve.
+packed parameters), so the whole sweep is one solve; a batch off the lane
+solver's rule (total % 128 != 0, or a custom family) runs on
+`batch_solve_swept`.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 
 from ..config import WEIGHT_NAMES, MPCParams, SolverConfig
 from ..solver.batch_lane import batch_solve_lane
-from .batch import make_random_scenarios
+from .batch import batch_solve_swept, make_random_scenarios
 from .presort import fit_difficulty_model, predict_difficulty
 
 
@@ -72,13 +74,6 @@ def tuning_sweep(generator: torch.Generator, candidates: MPCParams,
     consumes per-candidate reductions only, so the order does not change
     its result beyond reduction-order rounding."""
     n_weights = getattr(candidates, WEIGHT_NAMES[0]).shape[0]
-    if not (n_weights * n_scenarios % 128 == 0
-            and cfg.model in ("diff_drive", "bicycle")):
-        raise NotImplementedError(
-            "tuning_sweep on a batch off the lane solver's rule (total % 128 "
-            "!= 0 or a custom model family) needs batch_solve_swept and "
-            "solver/ilqr.py, which are not ported yet (ROADMAP Queue 1, "
-            "item 4)")
     z0s, coeffs = make_random_scenarios(generator, n_scenarios, dtype)
 
     if (presort and n_scenarios >= 256 and n_scenarios % 128 == 0
@@ -105,7 +100,13 @@ def tuning_sweep(generator: torch.Generator, candidates: MPCParams,
             torch.as_tensor(getattr(candidates, f.name), device=z0s.device),
             n_scenarios, dim=0)
         for f in dataclasses.fields(MPCParams)})
-    res = batch_solve_lane(z0s_t, coeffs_t, ps, cfg)
+    if (n_weights * n_scenarios % 128 == 0
+            and cfg.model in ("diff_drive", "bicycle")):
+        res = batch_solve_lane(z0s_t, coeffs_t, ps, cfg)
+    else:
+        # custom families (model_from_step) and ragged batches run the
+        # registry-generic engine
+        res = batch_solve_swept(z0s_t, coeffs_t, ps, cfg)
     costs = res.cost.reshape(n_weights, n_scenarios)
     term_cte = res.zs[:, -1, 4].abs().reshape(n_weights, n_scenarios)
     conv = res.converged.reshape(n_weights, n_scenarios)

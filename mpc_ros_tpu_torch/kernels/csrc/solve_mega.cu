@@ -48,10 +48,21 @@
 // clamped controls. The re-roll replays the winner's recorded controls
 // from s0 and writes s, u and g in place; a lane whose step is not
 // accepted skips it. That is the TPU kernel's re-roll, u_b + alpha_sel k +
-// K ds recomputed (solve_pallas.py:692-707), exactly: alpha_sel is one of
-// the candidates' alphas and the candidate's state took the same steps, so
+// K ds recomputed and blended upd * new + (1 - upd) * old
+// (solve_pallas.py:692-720), exactly, as long as every row the backward
+// read (s, u) or wrote (k, K) is finite: alpha_sel is one of the
+// candidates' alphas and the candidate's state took the same steps, so
 // the recomputed control is the recorded one bit for bit (the plain
-// version recomputes it; tests/test_torch_reroll.py). Counted per knot and
+// version recomputes it; tests/test_torch_reroll.py), new + 0 * old is new
+// and, on a rejected step, the re-roll at alpha 0 rebuilds old, so 0 * new
+// + old is old. The backward keeps a running sum of those rows (`chk`,
+// `replay_check` in the plain module), finite only if each is; where it is
+// not (a lane with NaN, inf or an overflowing rollout) the lane runs the
+// TPU kernel's recompute and blend (reroll_blend), whose 0 * inf gives the
+// plain version's NaN (tests/test_torch_k1_nonfinite.py). A lane that is
+// done has left the loop and keeps its state; the TPU kernel goes on
+// blending it while its tile runs, which differs only where that lane's
+// recomputed rollout is not finite. Counted per knot and
 // SQP iteration, the scratch traffic is 74 floats at n_ls = 4 (82 at 8):
 // the backward reads s, u, g (12) and writes k, K (16); the line search
 // reads s, u, k, K (24) and writes n_ls x 2 controls; the re-roll reads 2
@@ -395,6 +406,85 @@ __device__ __forceinline__ const float* at(const float* p, int lane) {
   return p == nullptr ? nullptr : p + lane;
 }
 
+// The largest finite float: the replay check's sum is finite iff it is at
+// most this in magnitude (NaN compares false).
+constexpr float kFloatMax = 3.40282347e38f;
+
+// The TPU kernel's re-roll (solve_pallas.py:692-720), run on a lane whose
+// replay check failed: per knot, u = clip(u_b + alpha_sel k + K ds), the
+// step from the re-roll's own state, and the blend upd * new + (1 - upd) *
+// old of the control, the trig cache and the next state, in place (the old
+// knot t+1 is read before it is written and carried as the next stage's
+// base). The operations and their order are the plain version's, so a
+// non-finite row turns to NaN exactly where it does there.
+template <bool BICYCLE, class TrigT>
+__device__ __forceinline__ void reroll_blend(const Lane& L, const Problem& pr,
+                                          const Extras& ex, const TrigT& trig,
+                                          const float (&s0)[8], float ct00,
+                                          float st00, float alpha_sel,
+                                          float upd, float lb0, float lb1,
+                                          float ub0, float ub1) {
+  const int B = L.B;
+  const float keep = 1.0f - upd;
+  float sa[8], sb[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) sa[r] = s0[r];
+#pragma unroll
+  for (int r = 0; r < 6; ++r) sb[r] = L.s[r * B];
+  sb[6] = 0.0f;
+  sb[7] = 0.0f;
+  float ct = ct00, st = st00;
+  for (int t = 0; t < L.T; ++t) {
+    const float ub_0 = L.u[t * 2 * B], ub_1 = L.u[(t * 2 + 1) * B];
+    const float k0 = L.k[t * 2 * B], k1 = L.k[(t * 2 + 1) * B];
+    float Km0[8], Km1[8], ds[8];
+    const float* Kt = L.K + t * 14 * B;
+#pragma unroll
+    for (int j = 0, jj = 0; j < 8; ++j) {
+      if (j == 4) {
+        Km0[j] = Km1[j] = 0.0f;
+        continue;
+      }
+      Km0[j] = Kt[jj * B];
+      Km1[j] = Kt[(7 + jj) * B];
+      ++jj;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) ds[j] = sa[j] - sb[j];
+    const float u0 = clampf(feedback(ub_0, alpha_sel, k0, Km0, ds), lb0, ub0);
+    const float u1 = clampf(feedback(ub_1, alpha_sel, k1, Km1, ds), lb1, ub1);
+    const float se = trig.se(ct, st, sa[5]);
+    const float ce = trig.ce(ct, st, sa[5]);
+    float* gt = L.g + t * 4 * B;
+    gt[0] = upd * ct + keep * gt[0];
+    gt[B] = upd * st + keep * gt[B];
+    gt[2 * B] = upd * se + keep * gt[2 * B];
+    gt[3 * B] = upd * ce + keep * gt[3 * B];
+    float sn[8];
+    if constexpr (BICYCLE)
+      ex.bicycle_step(pr, sa, u0, u1, ct, st, se, sn);
+    else
+      pr.dyn_step(sa, u0, u1, ct, st, se, sn);
+    L.u[t * 2 * B] = upd * u0 + keep * ub_0;
+    L.u[(t * 2 + 1) * B] = upd * u1 + keep * ub_1;
+    float* sp = L.s + (t + 1) * 8 * B;
+#pragma unroll
+    for (int r = 0; r < 6; ++r) {
+      const float old = sp[r * B];
+      sp[r * B] = upd * sn[r] + keep * old;
+      sb[r] = old;
+    }
+    sb[6] = ub_0;
+    sb[7] = ub_1;
+    if constexpr (BICYCLE)
+      trig.step(ct, st, sa[3] * ex.invlf * u0 * pr.dt, sn[2]);
+    else
+      trig.step(ct, st, u0 * pr.dt, sn[2]);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) sa[r] = sn[r];
+  }
+}
+
 template <int NLS, bool DDP, bool FAST, bool ADAPT, bool TILE_EXIT,
           bool BLOBS, bool SETP, bool BICYCLE>
 __global__ void __launch_bounds__(kTile)
@@ -538,6 +628,10 @@ __global__ void __launch_bounds__(kTile)
 
     // ---- backward scan with inline linearization ----
     float Vs[8], V[8][8];
+    // the replay check (replay_check in solve_mega.py): a running sum of
+    // every row the backward reads (s, u) or writes (k, K), finite only if
+    // every row is
+    float chk;
     // knots T-1 and T-2 start on their way while the terminal is read
     L.fetch_bwd(T - 1);
     copy_commit();
@@ -547,6 +641,7 @@ __global__ void __launch_bounds__(kTile)
       float sT[6];
 #pragma unroll
       for (int r = 0; r < 6; ++r) sT[r] = L.s[(T * 8 + r) * B];
+      chk = ((sT[0] + sT[1]) + (sT[2] + sT[3])) + (sT[4] + sT[5]);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         Vs[i] = 0.0f;
@@ -586,6 +681,9 @@ __global__ void __launch_bounds__(kTile)
         s_t[7] = 0.0f;
       }
       const float ut0 = q[6 * kTile], ut1 = q[7 * kTile];
+      chk = chk + ((((s_t[0] + s_t[1]) + (s_t[2] + s_t[3])) +
+                    (s_t[4] + s_t[5])) +
+                   (ut0 + ut1));
       const float rate = t >= 1 ? 1.0f : 0.0f;
       const float x = s_t[0], v = s_t[3], eth = s_t[5];
       const float ct = q[8 * kTile], st = q[9 * kTile];
@@ -808,13 +906,16 @@ __global__ void __launch_bounds__(kTile)
       L.k[(t * 2 + 1) * B] = k1;
       {
         float* Kt = L.K + t * 14 * B;
+        float kk = k0 + k1;
 #pragma unroll
         for (int j = 0, jj = 0; j < 8; ++j) {
           if (j == 4) continue;
           Kt[jj * B] = K0[j];
           Kt[(7 + jj) * B] = K1[j];
+          kk = kk + (K0[j] + K1[j]);
           ++jj;
         }
+        chk = chk + kk;
       }
       dv1 = dv1 + k0 * Qu0 + k1 * Qu1;
       dv2 = dv2 + 0.5f * (k0 * quk0 + k1 * quk1);
@@ -929,10 +1030,16 @@ __global__ void __launch_bounds__(kTile)
     const float accepted = minf(picked, 1.0f);
     const float upd = accepted * act;
 
-    // ---- the winner's re-roll: its recorded controls replayed from s0,
-    // written in place; a lane whose step is not accepted keeps its
-    // trajectory and skips this ----
-    if (upd > 0.5f) {
+    // ---- the winner's re-roll. Where every row the backward read or wrote
+    // is finite: on an accepted step the recorded controls replayed from
+    // s0, written in place; a rejected step keeps its trajectory and skips
+    // this. On any other lane the TPU kernel's re-roll, recomputed and
+    // blended (see reroll_blend) ----
+    const bool exact = fabsf(chk) <= kFloatMax;
+    if (!exact) {
+      reroll_blend<BICYCLE>(L, pr, ex, trig, s0, ct00, st00, alpha_sel, upd,
+                            lb0, lb1, ub0, ub1);
+    } else if (upd > 0.5f) {
       const float* cw = L.cu + win * T * 2 * B;
       float sa[8];
 #pragma unroll

@@ -10,9 +10,12 @@ backward scan with gated DDP terms and an exact 2-D box QP per stage,
 — alpha that lowers the cost wins), the winner's re-roll, and the
 per-lane mu / convergence / stall bookkeeping. The kernel's re-roll
 replays the controls its line search recorded for the winner, on the
-lanes whose step is accepted; the plain version recomputes them as the
-TPU kernel does, u_b + alpha_sel k + K ds, blended into every lane. The
-two are the same controls bit for bit (tests/test_torch_reroll.py).
+lanes whose step is accepted, where every row its backward read or wrote
+is finite (`replay_check`), and recomputes and blends as the TPU kernel
+does on the other running lanes; the plain version always recomputes,
+u_b + alpha_sel k + K ds, blended into every lane. The two give the same
+controls bit for bit (tests/test_torch_reroll.py), NaN and inf included
+(`design=True`, tests/test_torch_k1_nonfinite.py).
 
 Inputs are batch-last: zT (6, B), cT (P, B), params (12, B) from
 `pack.pack_params`, lb/ub (2, B), u0 (T, 2, B); optionally the resume
@@ -213,8 +216,30 @@ def _check_inputs(zT, cT, pp, lb, ub, u0, kn, resume=None, blobs=None,
 # --------------------------------------------------------------- plain
 
 
+def replay_check(s=None, u=None, gains=None):
+    """The kernel's check that a lane's re-roll may skip the blend: sums,
+    in the kernel's order, of what its backward reads of a knot (the state
+    s, rows 0-5, and the control u) or writes (`gains` = (k (2, B),
+    K (2, 8, B)), K without its structurally zero column 4). A lane's
+    running sum over the knots and the terminal state is finite only if
+    every term is, and then the rejected step's re-roll at alpha = 0
+    rebuilds the trajectory exactly (0 * new + old is old) and the accepted
+    step's blend is its new rollout (new + 0 * old); an overflow of a sum
+    of finite terms only sends the lane to the blend, which is exact
+    anyway."""
+    if gains is not None:
+        k, K = gains
+        acc = k[0] + k[1]
+        for j in range(_N):
+            if j != 4:
+                acc = acc + (K[0, j] + K[1, j])
+        return acc
+    acc = ((s[0] + s[1]) + (s[2] + s[3])) + (s[4] + s[5])
+    return acc if u is None else acc + (u[0] + u[1])
+
+
 def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None, blobs=None,
-                     refs=None, diag=None):
+                     refs=None, diag=None, design=False):
     """The plain PyTorch version of the kernel: `_kernel` of
     `solve_pallas.py` transcribed onto (B,)-vectors — the same
     structured-sparsity products in the same operation order, and an `act`
@@ -236,7 +261,14 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None, blobs=None,
     `cfg.model == "bicycle"` the heading advances by v delta dt / lf.
 
     `diag`: an optional (n_ls + 2, B) tensor, written in place on every
-    iteration a lane runs (`check_diag`)."""
+    iteration a lane runs (`check_diag`).
+
+    `design=True` runs the re-roll as the CUDA kernel does (for holding
+    that design against this version on the CPU): a lane whose backward
+    rows are all finite (`replay_check`) takes the winner's rollout on an
+    accepted step and keeps its trajectory on a rejected one, with no
+    blend; any other running lane blends as below; a done lane is left as
+    it is."""
     dtype = zT.dtype
     kn = _knobs_for(cfg, dtype, blobs, refs)
     T = kn.T
@@ -483,9 +515,13 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None, blobs=None,
                for i in range(_N)]
         Vss[0][1] = Vss[1][0] = ohxyT
         dv1 = dv2 = pg = zeros
+        if design:
+            chk = replay_check(sT)
         for t in range(T - 1, -1, -1):
             s_t = read_s(cur, t)
             u_t = traj_u[cur][t]
+            if design:
+                chk = chk + replay_check(s_t, u_t)
             rate = 1.0 if t >= 1 else 0.0
             x = s_t[0]
             v = s_t[3]
@@ -648,6 +684,8 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None, blobs=None,
 
             ks[t] = k
             Ks[t] = K
+            if design:
+                chk = chk + replay_check(gains=(k, K))
             dv1 = dv1 + k[0] * Qu2[0] + k[1] * Qu2[1]
             dv2 = dv2 + 0.5 * (k[0] * Quu_k[0] + k[1] * Quu_k[1])
             # pg on the weight-scale-normalized gradient
@@ -706,6 +744,21 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None, blobs=None,
         accepted = torch.clamp(picked, max=1.0)
         upd = accepted * act
         keep = 1.0 - upd
+        if design:
+            # the kernel's paths: the winner's replay on accepted lanes and
+            # no change on rejected ones where every backward row is
+            # finite, the blend on the other running lanes, nothing on
+            # done lanes
+            on_ = act > 0.5
+            blend = on_ & ~torch.isfinite(chk)
+            take_new = on_ & ~blend & (upd > 0.5)
+
+            def mix(new, old, blended):
+                return torch.where(blend, blended,
+                                   torch.where(take_new, new, old))
+        else:
+            def mix(new, old, blended):
+                return blended
 
         # ---- winner re-roll into the other buffer (masked) ----
         nxt = 1 - cur
@@ -727,13 +780,16 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None, blobs=None,
             g_n = (ct, st, se, ce_of(ct, st, s_a))
             # the trig cache blends like the states it describes; in place
             # is safe (nothing reads knot t again before the next backward)
-            traj_g[t] = tuple(upd * g + keep * g_old
+            traj_g[t] = tuple(mix(g, g_old, upd * g + keep * g_old)
                               for g, g_old in zip(g_n, traj_g[t]))
             s_n = dyn_step(s_a, u0_, u1_, ct, st, se)
-            traj_u[nxt][t] = (upd * u0_ + keep * u_b[0],
-                              upd * u1_ + keep * u_b[1])
-            traj_s[nxt][t + 1] = [upd * s_n[i] + keep * traj_s[cur][t + 1][i]
-                                  for i in range(6)]
+            traj_u[nxt][t] = tuple(
+                mix(u_n, u_o, upd * u_n + keep * u_o)
+                for u_n, u_o in zip((u0_, u1_), u_b))
+            traj_s[nxt][t + 1] = [
+                mix(s_n[i], traj_s[cur][t + 1][i],
+                    upd * s_n[i] + keep * traj_s[cur][t + 1][i])
+                for i in range(6)]
             ct, st = step_trig(ct, st, dth_of(s_a[3], u0_), s_n)
             s_a = s_n
         cost2 = torch.where(upd > 0.5, cost_sel, cost)

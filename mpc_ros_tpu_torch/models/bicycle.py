@@ -12,17 +12,18 @@
 
 The same 6-state layout and cost as the differential drive; only the
 heading rows and the steering bound (`p.max_steer`) differ. `p.lf` and
-`p.max_steer` are MPCParams leaves, scalar or per lane. The analytic
-Jacobians come with the single-scenario solver (ROADMAP Queue 1, item 4).
+`p.max_steer` are MPCParams leaves, scalar or per lane. The closed-form
+Jacobians and the augmented-state wrappers come with it.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.poly import polyeval
-from .base import Model, register_model
+from ..ops.poly import polyder_eval, polyeval
+from .base import Model, make_aug, register_model
 
+X, Y, PSI, V, CTE, EPSI = range(6)
 DELTA, ACCEL = range(2)
 
 
@@ -46,6 +47,53 @@ def step(z: torch.Tensor, u: torch.Tensor, coeffs: torch.Tensor, dt,
     ], dim=-1)
 
 
+def step_jacobians(z, u, coeffs, dt, sign, p):
+    """Closed-form (A, B) = (d step/dz, d step/du): (..., 6, 6), (..., 6, 2).
+    """
+    x = z[..., X]
+    psi = z[..., PSI]
+    v = z[..., V]
+    epsi = z[..., EPSI]
+    delta = u[..., DELTA]
+    cp = torch.cos(psi)
+    sp = torch.sin(psi)
+    ce = torch.cos(epsi)
+    se = torch.sin(epsi)
+    fp = polyder_eval(coeffs, x)
+    dt = torch.as_tensor(dt, dtype=z.dtype, device=z.device)
+    lf = torch.as_tensor(p.lf, dtype=z.dtype, device=z.device)
+    k = dt / lf                    # psi' / epsi' sensitivity scale
+    dk_dv = delta * k              # d(v / lf * delta * dt) / dv
+    dk_dd = v * k                  # d(.) / d delta
+    shape = torch.broadcast_shapes(x.shape, fp.shape, dk_dv.shape,
+                                   dk_dd.shape)
+    zero = torch.zeros(shape, dtype=z.dtype, device=z.device)
+    one = torch.ones_like(zero)
+
+    def M(rows):
+        return torch.stack([torch.stack([e.expand(shape) for e in r], dim=-1)
+                            for r in rows], dim=-2)
+
+    A = M([
+        #      x       y        psi          v         cte     epsi
+        [one, zero, -v * sp * dt, cp * dt, zero, zero],             # x'
+        [zero, one, v * cp * dt, sp * dt, zero, zero],              # y'
+        [zero, zero, one, dk_dv, zero, zero],                       # psi'
+        [zero, zero, zero, one, zero, zero],                        # v'
+        [fp, -one, zero, sign * se * dt, zero, sign * v * ce * dt],  # cte'
+        [zero, zero, zero, dk_dv, zero, one],                       # epsi'
+    ])
+    B = M([
+        [zero, zero],
+        [zero, zero],
+        [dk_dd, zero],         # psi'  <- delta
+        [zero, dt * one],      # v'    <- accel
+        [zero, zero],
+        [dk_dd, zero],         # epsi' <- delta
+    ])
+    return A, B
+
+
 def control_bounds(p, dtype, device=None):
     """(lb, ub) for (delta, accel): (2,) for shared limits, (2, B) when
     either limit is a per-scenario (B,) leaf."""
@@ -61,8 +109,17 @@ def _yaw_rate(v, delta, p):
     return v * delta / p.lf
 
 
+aug_step, aug_step_jacobians = make_aug(step, step_jacobians)
+
 MODEL = register_model(Model(
     name="bicycle",
     step=step,
+    step_jacobians=step_jacobians,
+    aug_step=aug_step,
+    aug_step_jacobians=aug_step_jacobians,
     control_bounds=control_bounds,
+    control_names=("delta", "accel"),
+    yaw_rate=_yaw_rate,
+    # Ackermann steering cannot rotate in place
+    can_rotate_in_place=False,
 ))

@@ -8,7 +8,7 @@ with gamma = 1 / (2 sigma^2). The penalty is smooth with an analytic
 gradient and a PSD Gauss-Newton curvature, and is elementwise per lane, so
 the whole-solve kernel evaluates it inline (`csrc/solve_mega.cu` under the
 template flag BLOBS). Grid costmaps (`ObstacleMap`) and the fits from a
-grid to blobs are ROADMAP Queue 1, item 9.
+grid to blobs are ROADMAP Queue 1, item 5.
 """
 
 from __future__ import annotations

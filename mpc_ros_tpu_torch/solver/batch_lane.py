@@ -24,9 +24,11 @@ float32, B % 128 == 0, a lane-specialized family ("diff_drive" or
   bicycle rows included.
 
 CPU tensors run each kernel's plain version, CUDA tensors launch the
-kernel. Per-knot setpoints off the kernel route need the single-scenario
-solver (ROADMAP Queue 1, item 4) and grid obstacle maps need
-`ObstacleMap` (item 9); both raise NotImplementedError naming the item.
+kernel. Per-knot setpoints (`refs`) off the kernel route run on the
+registry-generic engine (`engine.batch_solve`, the single-scenario
+solver batched), as the JAX package does; grid obstacle maps need
+`ObstacleMap` (ROADMAP Queue 1, item 5) and raise NotImplementedError
+naming the item.
 """
 
 from __future__ import annotations
@@ -323,7 +325,7 @@ def _backward_bl(ss, us, coeffs, dt, sign, p, V_s, V_ss, lb, ub, mu,
     part is added back on the lanes past the gate. Returns ks (T,2,B),
     Ks (T,2,8,B), dV1, dV2, pg (B,)."""
     if omaps is not None:
-        _not_ported("grid obstacle maps (omaps)", "ROADMAP Queue 1, item 9")
+        _not_ported("grid obstacle maps (omaps)", "ROADMAP Queue 1, item 5")
     dtype = ss.dtype
     dev = ss.device
     T = us.shape[0]
@@ -692,17 +694,21 @@ class LaneSQP:
         return self.result()
 
 
-def solve_two_kernel(z0s, coeffs, p, cfg: SolverConfig, u_init=None,
-                     plain: bool = False) -> SolveResult:
-    """The two-kernel route (K4 backward + K5 line search) on any inputs
-    the kernels take; `plain=True` runs the kernels' plain versions by
-    name (see `two_kernel_stages`)."""
+def _refuse_route_ddp(cfg: SolverConfig) -> None:
     if cfg.ddp != "auto" and bool(cfg.ddp):
         # ddp="auto" resolves to GN on this backward instead of raising
         raise ValueError(
             "SolverConfig.ddp is implemented on the megakernel and XLA "
             "lane paths; the legacy two-kernel backward (backward='pallas')"
             " does not carry the second-order terms")
+
+
+def solve_two_kernel(z0s, coeffs, p, cfg: SolverConfig, u_init=None,
+                     plain: bool = False) -> SolveResult:
+    """The two-kernel route (K4 backward + K5 line search) on any inputs
+    the kernels take; `plain=True` runs the kernels' plain versions by
+    name (see `two_kernel_stages`)."""
+    _refuse_route_ddp(cfg)
     return LaneSQP(z0s, coeffs, p, cfg, u_init,
                    two_kernel=two_kernel_stages(plain)).run()
 
@@ -717,15 +723,26 @@ def batch_solve_lane(z0s: torch.Tensor, coeffs: torch.Tensor, p,
     `blobs`: a `GaussianObstacles` with (B, K) leaves, per-scenario
     parametric obstacles (the kernel route and the XLA lane path carry
     them). `refs`: (B, n_steps, 3) per-knot (ref_cte, ref_etheta, ref_vel)
-    setpoint profiles, taken by the kernel route only."""
+    setpoint profiles: the kernel route evaluates them, every other
+    configuration runs on `engine.batch_solve` (shared or per-lane
+    params, blobs composed with the profiles)."""
     if omaps is not None:
-        _not_ported("batch_solve_lane(omaps=...)", "ROADMAP Queue 1, item 9")
+        if refs is not None:
+            # the JAX package's refusal: the fallback below carries no
+            # batched grid terms
+            raise ValueError(
+                "batch_solve_lane(refs=...) with grid omaps requires the "
+                "megakernel path (cfg.backward='mega' on a kernel shape); "
+                "the registry-generic fallback does not carry batched grid "
+                "terms")
+        _not_ported("batch_solve_lane(omaps=...)", "ROADMAP Queue 1, item 5")
     if cfg.model not in ("diff_drive", "bicycle"):
-        # the lane stages are specialized per family; other families need
-        # the registry-generic single-scenario solver
+        # the lane stages are specialized per family; a silent diff-drive
+        # fallback would solve a custom family with the wrong dynamics
         raise ValueError(
             f"batch_solve_lane supports the lane-specialized families "
-            f"('diff_drive', 'bicycle'), got {cfg.model!r}")
+            f"('diff_drive', 'bicycle'), got {cfg.model!r}; use "
+            f"engine.batch_solve for registry-defined families")
     if cfg.backward not in ("auto", "mega", "pallas", "xla"):
         raise ValueError(f"unknown backward {cfg.backward!r}")
 
@@ -738,11 +755,18 @@ def batch_solve_lane(z0s: torch.Tensor, coeffs: torch.Tensor, p,
     # "pallas" runs the XLA lane path
     use_pallas = (not use_mega and kernels_ok and blobs is None
                   and cfg.backward == "pallas" and cfg.model == "diff_drive")
+    if use_pallas:
+        _refuse_route_ddp(cfg)
     if refs is not None and not use_mega:
-        # the XLA lane stages keep the scalar setpoints; the JAX package
-        # solves profiles off the kernel with its single-scenario solver
-        _not_ported("batch_solve_lane(refs=...) off the kernel route",
-                    "ROADMAP Queue 1, item 4: solver/ilqr.py")
+        # the XLA lane stages keep the scalar setpoints: profiles off the
+        # kernel run on the single-scenario solver, batched (per-lane
+        # params ride its batch, blobs compose with the profiles)
+        from ..engine.batch import batch_solve
+
+        return batch_solve(z0s, coeffs, p, cfg, u_init=u_init,
+                           refs=torch.as_tensor(refs, dtype=z0s.dtype,
+                                                device=z0s.device),
+                           blobs=blobs)
     if use_mega:
         zT, cT, pp, lb, ub, us0 = lane_inputs(z0s, coeffs, p, cfg, u_init)
         dtype, dev = z0s.dtype, z0s.device

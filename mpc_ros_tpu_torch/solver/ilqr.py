@@ -1,0 +1,462 @@
+"""Control-limited iLQR / SQP solver (counterpart of
+`mpc_ros_tpu/solver/ilqr.py`), the behavioural spec of the whole solver.
+
+It solves the reference NLP in condensed (single-shooting) form: the
+states are eliminated through the dynamics, the decision variables are
+the T = N-1 controls, and the box bounds on the controls are handled
+exactly by a control-limited Riccati backward pass (a 2-D box QP per
+stage, `boxqp.solve_boxqp_2d`). It is generic over the model registry:
+the Jacobians come from the family (`Model.aug_step_jacobians`) and the
+exact dynamics Hessians of the gated GN -> DDP terms from autodiff
+(`step_hessians`, forward-mode twice).
+
+Layout. The JAX package solves one scenario per `lax.while_loop` and
+batches with `jax.vmap`. Here `solve` is batch-first: every array carries
+the batch in front (z0 (B, 6), us (B, T, 2), ss (B, T+1, 8)), each lane
+has its own done flag, and the loop reads "every lane done" on the host
+once per iteration (`host_reads` counts those reads). The body runs on
+every lane and a lane that is done keeps its state, its `n_iters` and its
+`converged`, which is what `jax.vmap` of the `while_loop` does. One
+scenario is B = 1: `solve` takes z0 (6,) and returns unbatched results.
+Per-scenario MPCParams leaves of shape (B,) ride the batch; they reach
+the autodiff of `step_hessians` mapped per lane (`base.lane_map`).
+
+Grid costmaps (`omap`) are ROADMAP Queue 1 item 5, and the horizon-
+parallel backward (`SolverConfig.horizon_parallel`) item 7; both raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..config import MPCParams, SolverConfig
+from ..models import diff_drive as dd
+from ..models.base import Model, get_model, lane_map
+from ..models.costs import (ref_state_vector, scaled_solver_knobs,
+                            stage_expansion_aug, state_weights, total_cost)
+from ..models.obstacles import blob_concave_bl, blob_terms_bl
+from .batch_lane import _not_ported
+from .boxqp import solve_boxqp_2d
+from .types import SolveResult
+
+_S = dd.AUG_STATE_DIM   # 8
+_M = dd.CONTROL_DIM     # 2
+
+# host reads of the loop's exit condition (one per iteration run, plus the
+# read that ends the loop before the cap)
+host_reads = 0
+
+
+def _lane_params(p: MPCParams, extra: int = 0) -> MPCParams:
+    """p with every per-scenario leaf (B,) reshaped to (B,) + (1,) * extra,
+    so that it broadcasts against arrays with `extra` more axes after the
+    batch; shared leaves are unchanged."""
+    def view(v):
+        if isinstance(v, torch.Tensor) and v.dim() > 0:
+            return v.reshape(v.shape + (1,) * extra)
+        return v
+    return MPCParams(**{f.name: view(getattr(p, f.name))
+                        for f in dataclasses.fields(p)})
+
+
+def _blob_lanes(blobs, extra: int = 0):
+    """The blobs as four lane-major (K, B) tensors, reshaped to (K, B) +
+    (1,) * extra to broadcast against (B, ...) points."""
+    return tuple(a.transpose(0, 1).reshape(a.shape[::-1] + (1,) * extra)
+                 for a in (blobs.cx, blobs.cy, blobs.gamma, blobs.w))
+
+
+def _rollout_aug(z0, us, coeffs, dt, sign, mdl: Model, p: MPCParams):
+    """Augmented-state rollout: z0 (B, 6), us (B, T, 2) -> ss (B, T+1, 8)
+    with s = (z, prev_u)."""
+    s = torch.cat([z0, torch.zeros(z0.shape[:-1] + (_M,), dtype=z0.dtype,
+                                   device=z0.device)], dim=-1)
+    ss = [s]
+    for t in range(us.shape[-2]):
+        s = mdl.aug_step(s, us[:, t], coeffs, dt, sign, p)
+        ss.append(s)
+    return torch.stack(ss, dim=1)
+
+
+def _linearize_and_expand(ss, us, coeffs, p: MPCParams, dt, sign,
+                          mdl: Model, omap=None, blobs=None, refs=None):
+    """Per-stage Jacobians and exact cost quadratics along trajectories,
+    all stages at once: A (B, T, 8, 8), Bm (B, T, 8, 2), l_s (B, T, 8),
+    l_u (B, T, 2), l_ss (B, T, 8, 8), l_uu (B, T, 2, 2), l_us (B, T, 2, 8).
+    `blobs` (leaves (B, K)) add their exact gradient and Gauss-Newton
+    curvature to l_s / l_ss; `refs` (B, N, 3) the per-knot setpoints."""
+    if omap is not None:
+        _not_ported("grid obstacle maps (omap)", "ROADMAP Queue 1, item 5")
+    T = us.shape[1]
+    dtype, dev = ss.dtype, ss.device
+    rate_on = torch.cat([torch.zeros((1,), dtype=dtype, device=dev),
+                         torch.ones((T - 1,), dtype=dtype, device=dev)])
+    p1 = _lane_params(p, 1)
+    dt1 = dt.reshape(dt.shape + (1,) * (dt.dim() > 0))
+    A, Bm = mdl.aug_step_jacobians(ss[:, :-1], us, coeffs[:, None], dt1,
+                                   sign, p1)
+    l_s, l_u, l_ss, l_uu, l_us = stage_expansion_aug(
+        ss[:, :-1], us, rate_on, p1, None if refs is None else refs[:, :-1])
+    l_s, l_ss = l_s.clone(), l_ss.clone()
+    if blobs is not None:
+        _, gx, gy, hxx, hxy, hyy = blob_terms_bl(
+            *_blob_lanes(blobs, 1), ss[:, :-1, 0], ss[:, :-1, 1])
+        l_s[..., 0] += gx
+        l_s[..., 1] += gy
+        l_ss[..., 0, 0] += hxx
+        l_ss[..., 0, 1] += hxy
+        l_ss[..., 1, 0] += hxy
+        l_ss[..., 1, 1] += hyy
+    return A, Bm, l_s, l_u, l_ss, l_uu, l_us
+
+
+def _terminal_expansion(s_T, p: MPCParams, omap=None, blobs=None,
+                        ref3_T=None):
+    """Gradient and Hessian of the terminal tracking cost (exact, closed
+    form), s_T (B, 8) -> V_s (B, 8), V_ss (B, 8, 8); with `blobs` their
+    gradient and Gauss-Newton curvature. `ref3_T` (B, 3) = the last knot's
+    (ref_cte, ref_etheta, ref_vel) row."""
+    if omap is not None:
+        _not_ported("grid obstacle maps (omap)", "ROADMAP Queue 1, item 5")
+    dtype, dev = s_T.dtype, s_T.device
+    B = s_T.shape[0]
+    wz6, ref6 = state_weights(p, dtype, dev)
+    if ref3_T is not None:
+        ref6 = ref_state_vector(p, dtype, ref3_T, device=dev)
+    # padded to the augmented state (the prev-control rows carry no
+    # terminal weight)
+    pad = torch.zeros((_M,), dtype=dtype, device=dev)
+    wz = torch.cat([wz6.expand(B, dd.STATE_DIM), pad.expand(B, _M)], dim=-1)
+    ref = torch.cat([ref6.expand(B, dd.STATE_DIM), pad.expand(B, _M)],
+                    dim=-1)
+    V_s = 2.0 * wz * (s_T - ref)
+    V_ss = torch.diag_embed(2.0 * wz)
+    if blobs is not None:
+        _, gx, gy, hxx, hxy, hyy = blob_terms_bl(*_blob_lanes(blobs),
+                                                 s_T[:, 0], s_T[:, 1])
+        V_s[:, 0] += gx
+        V_s[:, 1] += gy
+        V_ss[:, 0, 0] += hxx
+        V_ss[:, 0, 1] += hxy
+        V_ss[:, 1, 0] += hxy
+        V_ss[:, 1, 1] += hyy
+    return V_s, V_ss
+
+
+def step_hessians(ss, us, coeffs, dt, sign, mdl: Model, p: MPCParams):
+    """Exact per-stage dynamics Hessians d2f_k/d(s,u)2 by forward-mode
+    autodiff twice (`torch.func.jacfwd` of `jacfwd`), mapped over lanes x
+    stages: (B, T, 8, 10, 10). Generic over the model registry, so any
+    family of `model_from_step` gets exact second-order terms; the
+    per-scenario inputs (coeffs, dt, MPCParams leaves of shape (B,)) reach
+    each lane's stages mapped, not closed over."""
+    from torch.func import jacfwd
+
+    def h(c, d, pp, s_t, u_t):
+        f = lambda q: mdl.aug_step(q[:_S], q[_S:], c, d, sign, pp)
+        return jacfwd(jacfwd(f))(torch.cat([s_t, u_t]))
+
+    batch = us.shape[:2]
+    dt1 = dt.reshape(dt.shape + (1,) * (dt.dim() > 0))
+    return lane_map(h, batch, coeffs[:, None], dt1, _lane_params(p, 1),
+                    ss[:, :-1], us)
+
+
+def _bmv(M, v):
+    """Batched matrix @ vector over the leading dims."""
+    return torch.einsum("...ij,...j->...i", M, v)
+
+
+def _T(M):
+    return M.transpose(-1, -2)
+
+
+def backward_pass(A, B, l_s, l_u, l_ss, l_uu, l_us, V_s, V_ss, us, lb, ub,
+                  mu, H=None, ddp_gate_val=None, inv_scale=None):
+    """Control-limited Riccati recursion over the stages in reverse, every
+    lane at once. A (B, T, 8, 8) ... us (B, T, 2), lb/ub (B, 2), mu (B,).
+
+    `H` (B, T, 8, 10, 10) = exact dynamics Hessians (`step_hessians`):
+    when given, the full-DDP contraction sum_k Vs_k H_k is added to the Q
+    expansion, scaled per lane by `ddp_gate_val` (B,), the 0/1 hybrid
+    GN -> DDP gate. `inv_scale` (0-d or (B,)) normalizes the projected-
+    gradient measurement by the weight scale.
+
+    Returns feedforwards k (B, T, 2), feedbacks K (B, T, 2, 8), the
+    expected-improvement terms dV1, dV2 (B,) and the max projected-gradient
+    norm over stages (B,)."""
+    dtype, dev = us.dtype, us.device
+    T = us.shape[1]
+    gate = (torch.zeros((), dtype=dtype, device=dev) if ddp_gate_val is None
+            else ddp_gate_val)
+    iscl = (torch.ones((), dtype=dtype, device=dev) if inv_scale is None
+            else torch.as_tensor(inv_scale, dtype=dtype, device=dev))
+    iscl = iscl.reshape(iscl.shape + (1,) * (iscl.dim() > 0))
+    eye = torch.eye(_M, dtype=dtype, device=dev)
+    Vs, Vss = V_s, V_ss
+    ks, Ks, dV1s, dV2s, pgs = ([None] * T for _ in range(5))
+    for t in range(T - 1, -1, -1):
+        A_t, B_t = A[:, t], B[:, t]
+        u_t = us[:, t]
+        Q_s = l_s[:, t] + _bmv(_T(A_t), Vs)
+        Q_u = l_u[:, t] + _bmv(_T(B_t), Vs)
+        Q_ss = l_ss[:, t] + _T(A_t) @ Vss @ A_t
+        Q_us = l_us[:, t] + _T(B_t) @ Vss @ A_t
+        Q_uu = l_uu[:, t] + _T(B_t) @ Vss @ B_t
+        if H is not None:
+            D = (torch.einsum("bkij,bk->bij", H[:, t], Vs)
+                 * gate[:, None, None])
+            Q_ss = Q_ss + D[:, :_S, :_S]
+            Q_us = Q_us + D[:, _S:, :_S]
+            Q_uu = Q_uu + D[:, _S:, _S:]
+        Q_uu = 0.5 * (Q_uu + _T(Q_uu))
+        Q_uu_reg = Q_uu + mu[:, None, None] * eye
+
+        k, free, Minv = solve_boxqp_2d(Q_uu_reg, Q_u, lb - u_t, ub - u_t)
+        K = Minv @ (-(free[..., :, None] * Q_us))
+
+        KtQuu = _T(K) @ Q_uu
+        Vs = Q_s + _bmv(KtQuu, k) + _bmv(_T(K), Q_u) + _bmv(_T(Q_us), k)
+        KtQus = _T(K) @ Q_us
+        Vss_n = Q_ss + KtQuu @ K + KtQus + _T(KtQus)
+        Vss = 0.5 * (Vss_n + _T(Vss_n))
+
+        ks[t], Ks[t] = k, K
+        dV1s[t] = torch.sum(k * Q_u, dim=-1)
+        dV2s[t] = torch.sum(_bmv(_T(Q_uu), 0.5 * k) * k, dim=-1)
+        # projected gradient: zero where the KKT conditions hold on the box
+        pgs[t] = torch.amax(torch.abs(
+            u_t - torch.clamp(u_t - Q_u * iscl, lb, ub)), dim=-1)
+    return (torch.stack(ks, dim=1), torch.stack(Ks, dim=1),
+            torch.stack(dV1s, dim=1).sum(dim=1),
+            torch.stack(dV2s, dim=1).sum(dim=1),
+            torch.stack(pgs, dim=1).amax(dim=1))
+
+
+def forward_pass_multi_alpha(ss_bar, us_bar, ks, Ks, alphas, z0, coeffs,
+                             p: MPCParams, dt, lb, ub, sign, mdl: Model,
+                             omap=None, blobs=None, refs=None):
+    """Closed-loop rollouts for all candidate step sizes in one loop over
+    the stages (carry (B, n_alpha, 8)). Returns ss (B, n_alpha, T+1, 8),
+    us (B, n_alpha, T, 2), costs (B, n_alpha)."""
+    n_alpha = alphas.shape[0]
+    Bn = z0.shape[0]
+    s0 = torch.cat([z0, torch.zeros((Bn, _M), dtype=z0.dtype,
+                                    device=z0.device)], dim=-1)
+    s_all = s0[:, None].expand(Bn, n_alpha, _S)
+    p1 = _lane_params(p, 1)
+    dt1 = dt.reshape(dt.shape + (1,) * (dt.dim() > 0))
+    c1 = coeffs[:, None]
+    lb1, ub1 = lb[:, None], ub[:, None]
+    ss_out, us_out = [s_all], []
+    for t in range(us_bar.shape[1]):
+        ds = s_all - ss_bar[:, t, None]
+        u_all = (us_bar[:, t, None] + alphas[:, None] * ks[:, t, None]
+                 + torch.einsum("baj,bmj->bam", ds, Ks[:, t]))
+        u_all = torch.clamp(u_all, lb1, ub1)
+        s_all = mdl.aug_step(s_all, u_all, c1, dt1, sign, p1)
+        ss_out.append(s_all)
+        us_out.append(u_all)
+    ss_new = torch.stack(ss_out, dim=2)
+    us_new = torch.stack(us_out, dim=2)
+    costs = _traj_cost(ss_new[..., :dd.STATE_DIM], us_new,
+                       _lane_params(p, 2), omap, blobs,
+                       None if refs is None else refs[:, None])
+    return ss_new, us_new, costs
+
+
+def _traj_cost(zs, us, p: MPCParams, omap=None, blobs=None, refs=None):
+    """FG_eval objective plus the blob penalty over every knot: zs
+    (B, ..., N, 6), us (B, ..., N-1, 2) -> (B, ...); the MPCParams leaves
+    and `refs` shaped to broadcast against zs[..., 0] and zs[..., :3]."""
+    if omap is not None:
+        _not_ported("grid obstacle maps (omap)", "ROADMAP Queue 1, item 5")
+    J = total_cost(zs, us, p, refs)
+    if blobs is not None:
+        extra = zs.dim() - 2
+        val = blob_terms_bl(*_blob_lanes(blobs, extra), zs[..., 0],
+                            zs[..., 1])[0]
+        J = J + torch.sum(val, dim=-1)
+    return J
+
+
+def _batched(x, dtype, dev, rank: int):
+    """x as a tensor with a batch dim in front (added when x has `rank`
+    dims, the single-scenario form)."""
+    if x is None:
+        return None
+    x = torch.as_tensor(x, dtype=dtype, device=dev)
+    return x[None] if x.dim() == rank else x
+
+
+def solve(z0: torch.Tensor, coeffs: torch.Tensor, p: MPCParams,
+          cfg: SolverConfig, u_init: Optional[torch.Tensor] = None,
+          omap=None, blobs=None,
+          refs: Optional[torch.Tensor] = None) -> SolveResult:
+    """Solve NMPC problems: z0 (B, 6), coeffs (B, P), or one problem, z0
+    (6,), coeffs (P,), whose result is then unbatched. The computation
+    runs on z0's device in z0's dtype.
+
+    `p`'s leaves are shared (floats or 0-d tensors) or per scenario ((B,)).
+    `u_init` (B, T, 2) warm-starts (clipped to the bounds); None is the
+    cold start, the plant rolled under zero controls. `blobs`
+    (`GaussianObstacles`, leaves (B, K)) adds Gaussian obstacles; `refs`
+    (B, N, 3) per-knot (ref_cte, ref_etheta, ref_vel) setpoint profiles;
+    the two compose. `omap` (grid costmaps) raises (ROADMAP Queue 1,
+    item 5)."""
+    global host_reads
+    if omap is not None:
+        _not_ported("solve(omap=...)", "ROADMAP Queue 1, item 5")
+    if cfg.ddp != "auto" and bool(cfg.ddp) and cfg.horizon_parallel:
+        # the associative-scan elements need SPD stage quadratics up
+        # front, so the gated DDP contraction is sequential-path only
+        raise ValueError(
+            "SolverConfig.ddp is not supported with horizon_parallel "
+            "(the scan elements need SPD stage quadratics); pick one")
+    if cfg.horizon_parallel:
+        _not_ported("the horizon-parallel backward (horizon_parallel)",
+                    "ROADMAP Queue 1, item 7")
+    dtype, dev = z0.dtype, z0.device
+    single = z0.dim() == 1
+    z0 = _batched(z0, dtype, dev, 1)
+    coeffs = _batched(coeffs, dtype, dev, 1)
+    u_init = _batched(u_init, dtype, dev, 2)
+    refs = _batched(refs, dtype, dev, 2)
+    if blobs is not None:
+        blobs = dataclasses.replace(blobs, **{
+            f.name: _batched(getattr(blobs, f.name), dtype, dev, 1)
+            for f in dataclasses.fields(blobs)})
+    Bn = z0.shape[0]
+    T = cfg.n_controls
+    mdl = get_model(cfg.model)
+    dt = torch.as_tensor(p.dt, dtype=dtype, device=dev)
+    blb, bub = mdl.control_bounds(p, dtype, dev)     # (2,) or (2, B)
+    lb = (blb.T if blb.dim() == 2 else blb).expand(Bn, _M)
+    ub = (bub.T if bub.dim() == 2 else bub).expand(Bn, _M)
+    if u_init is None:
+        us0 = torch.zeros((Bn, T, _M), dtype=dtype, device=dev)
+    else:
+        us0 = torch.clamp(u_init.expand(Bn, T, _M), lb[:, None],
+                          ub[:, None])
+    use_ddp = cfg.ddp_for(dtype)
+    n_ls = cfg.ls_for(dtype)
+    sign = cfg.cte_vsin_sign
+    ss = _rollout_aug(z0, us0, coeffs, dt, sign, mdl, p)
+    us = us0
+    p1 = _lane_params(p, 1)
+    cost = _traj_cost(ss[..., :dd.STATE_DIM], us, p1, None, blobs, refs)
+
+    def t_(x):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+
+    tol_grad = t_(cfg.tol_grad_for(dtype))
+    # the relative cost tolerance can't be tighter than the dtype resolves
+    tol_cost = t_(max(cfg.tol_cost, 10.0 * float(torch.finfo(dtype).eps)))
+    # one-sided weight-scale equivariance (models/costs.scaled_solver_knobs):
+    # mu bounds and the relative-cost guards' floor scale with s, pg is
+    # measured on Q_u / s
+    mu_min, mu_max, inv_scl, cost_guard = scaled_solver_knobs(
+        cfg, p, dtype, dev, has_obstacles=blobs is not None)
+    mu_factor = t_(cfg.mu_factor)
+    alphas = t_(0.5) ** torch.arange(n_ls, dtype=dtype, device=dev)
+    gate_val = cfg.gate_for(blobs is not None, dtype)
+
+    mu = mu_min.expand(Bn).clone()
+    it = torch.zeros((Bn,), dtype=torch.int32, device=dev)
+    done = torch.zeros((Bn,), dtype=torch.bool, device=dev)
+    gnorm = torch.full((Bn,), float("inf"), dtype=dtype, device=dev)
+    n_small = torch.zeros((Bn,), dtype=torch.int32, device=dev)
+    conv = torch.zeros((Bn,), dtype=torch.bool, device=dev)
+    ar = torch.arange(Bn, device=dev)
+
+    for _ in range(cfg.max_sqp_iters):
+        # the loop's condition per lane is it < max_iters and not done;
+        # every lane still running has run every iteration so far, so the
+        # cap is read on the host and "all done" once per iteration
+        host_reads += 1
+        if bool(done.all()):
+            break
+        run = ~done
+        A, Bm, l_s, l_u, l_ss, l_uu, l_us = _linearize_and_expand(
+            ss, us, coeffs, p, dt, sign, mdl, None, blobs, refs)
+        V_s, V_ss = _terminal_expansion(
+            ss[:, -1], p, None, blobs, None if refs is None else refs[:, -1])
+        if use_ddp:
+            H = step_hessians(ss, us, coeffs, dt, sign, mdl, p)
+            # obstacle ensembles cap the auto gate at 0.75 and restore the
+            # blob Hessian's concave part (SolverConfig.gate_for)
+            g = (gnorm < t_(gate_val)).to(dtype)
+            if blobs is not None:
+                corr = blob_concave_bl(*_blob_lanes(blobs, 1), ss[:, :-1, 0],
+                                       ss[:, :-1, 1]) * g[:, None]
+                l_ss[..., 0, 0] -= corr
+                l_ss[..., 1, 1] -= corr
+                corrT = blob_concave_bl(*_blob_lanes(blobs), ss[:, -1, 0],
+                                        ss[:, -1, 1]) * g
+                V_ss[:, 0, 0] -= corrT
+                V_ss[:, 1, 1] -= corrT
+            ks, Ks, dV1, dV2, pg = backward_pass(
+                A, Bm, l_s, l_u, l_ss, l_uu, l_us, V_s, V_ss, us, lb, ub,
+                mu, H=H, ddp_gate_val=g, inv_scale=inv_scl)
+        else:
+            ks, Ks, dV1, dV2, pg = backward_pass(
+                A, Bm, l_s, l_u, l_ss, l_uu, l_us, V_s, V_ss, us, lb, ub,
+                mu, inv_scale=inv_scl)
+        # a tiny predicted decrease -(dV1 + dV2) marks a numerical optimum
+        pred_decrease = -(dV1 + dV2)
+        tiny_model = pred_decrease <= tol_cost * (cost_guard
+                                                  + torch.abs(cost))
+
+        # the parallel-in-alpha line search: the first (largest) alpha with
+        # a cost decrease wins
+        ss_all, us_all, costs_all = forward_pass_multi_alpha(
+            ss, us, ks, Ks, alphas, z0, coeffs, p, dt, lb, ub, sign, mdl,
+            None, blobs, refs)
+        improved = costs_all < cost[:, None]
+        accepted = torch.any(improved, dim=1)
+        rank = torch.arange(n_ls, device=dev)
+        pick = torch.argmin(torch.where(improved, rank, n_ls + 1), dim=1)
+        ss_n = ss_all[ar, pick]
+        us_n = us_all[ar, pick]
+        cost_n = costs_all[ar, pick]
+
+        ss2 = torch.where(accepted[:, None, None], ss_n, ss)
+        us2 = torch.where(accepted[:, None, None], us_n, us)
+        cost2 = torch.where(accepted, cost_n, cost)
+        mu2 = torch.where(accepted, torch.maximum(mu / mu_factor, mu_min),
+                          torch.minimum(mu * mu_factor, mu_max))
+
+        # convergence is gradient-driven; the cost-based stop fires after
+        # two consecutive negligible decreases
+        small_step = accepted & (torch.abs(cost - cost2)
+                                 <= tol_cost * (cost_guard
+                                                + torch.abs(cost)))
+        n_small2 = torch.where(small_step, n_small + 1,
+                               torch.zeros_like(n_small))
+        # a tiny predicted decrease certifies an optimum only with the trust
+        # region open; under inflated mu it is a stall, and only if the
+        # step was also rejected
+        mu_open = mu <= mu_min * mu_factor
+        converged = (pg < tol_grad) | (n_small2 >= 2) | (tiny_model & mu_open)
+        stalled = ((~accepted & (mu2 >= mu_max))
+                   | (tiny_model & ~mu_open & ~accepted))
+        # lanes that are done keep their state, as vmap's while_loop does
+        ss = torch.where(run[:, None, None], ss2, ss)
+        us = torch.where(run[:, None, None], us2, us)
+        cost = torch.where(run, cost2, cost)
+        mu = torch.where(run, mu2, mu)
+        it = it + run.to(torch.int32)
+        gnorm = torch.where(run, pg, gnorm)
+        n_small = torch.where(run, n_small2, n_small)
+        conv = torch.where(run, converged, conv)
+        done = torch.where(run, converged | stalled, done)
+
+    res = SolveResult(us=us, zs=ss[..., :dd.STATE_DIM], cost=cost,
+                      converged=conv, n_iters=it, grad_norm=gnorm, reg=mu)
+    if single:
+        res = SolveResult(**{f.name: getattr(res, f.name)[0]
+                             for f in dataclasses.fields(res)})
+    return res

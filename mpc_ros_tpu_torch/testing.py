@@ -10,10 +10,26 @@ draw them.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
 from .config import WEIGHT_NAMES
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """Run the block with n intra-op threads, restoring the count after.
+    The comparisons run thousands of small ops, often in several test
+    processes at once, where one thread each beats pools that
+    oversubscribe the cores."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
 
 
 def numpy_scenarios(seed: int, batch: int, pose_scale: float = 0.3,

@@ -17,11 +17,20 @@ from mpc_ros_tpu.solver import batch_lane as jbl
 from mpc_ros_tpu_torch.config import MPCParams
 from mpc_ros_tpu_torch.kernels import backward_fused
 from mpc_ros_tpu_torch.kernels.pack import pack_params
-from mpc_ros_tpu_torch.testing import numpy_scenarios, scaled_weights
+from mpc_ros_tpu_torch.testing import (numpy_scenarios, scaled_weights,
+                                       torch_threads)
 
 B = 128
 OUTS = ("ks", "Ks", "dV1", "dV2", "pg")
 
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tests run many small ops, and the suite
+    runs in several processes at once (`testing.torch_threads`)."""
+    with torch_threads(1):
+        yield
 
 def make_inputs(seed, T, lane_weights=True):
     """numpy inputs of one backward pass: a rollout of random controls

@@ -15,14 +15,25 @@ from mpc_ros_tpu.config import SolverConfig as JSolverConfig
 from mpc_ros_tpu.engine.batch import analytic_u_init as janalytic
 from mpc_ros_tpu.solver.batch_lane import batch_solve_lane as jsolve
 from mpc_ros_tpu_torch.config import MPCParams, SolverConfig
-from mpc_ros_tpu_torch.engine import analytic_u_init, make_random_scenarios
+from mpc_ros_tpu_torch.engine import (analytic_u_init, batch_solve,
+                                      make_random_scenarios)
+from mpc_ros_tpu_torch.solver import ilqr
 from mpc_ros_tpu_torch.solver.batch_lane import batch_solve_lane
-from mpc_ros_tpu_torch.testing import numpy_scenarios, scaled_weights
+from mpc_ros_tpu_torch.testing import (numpy_refs, numpy_scenarios,
+                                       scaled_weights, torch_threads)
 from mpc_ros_tpu_torch.verify import parity_gates
 
 B = 128
 N = 12
 
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tests run many small ops, and the suite
+    runs in several processes at once (`testing.torch_threads`)."""
+    with torch_threads(1):
+        yield
 
 def _solve_both(kw, leaves=None, u_init=None, seed=0):
     z0, coeffs = numpy_scenarios(seed, B)
@@ -111,20 +122,56 @@ def test_random_scenarios_distribution():
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(refs=object(), backward="xla"), NotImplementedError,
-     "Queue 1, item 4"),
-    (dict(refs=object()), NotImplementedError, "Queue 1, item 4"),
-    (dict(omaps=object()), NotImplementedError, "Queue 1, item 9"),
+    (dict(omaps=object()), NotImplementedError, "Queue 1, item 5"),
     (dict(omaps=object(), backward="mega"), NotImplementedError,
-     "Queue 1, item 9"),
+     "Queue 1, item 5"),
+    (dict(omaps=object(), refs=object()), ValueError, "megakernel path"),
     (dict(model="tricycle"), ValueError, "lane-specialized families"),
-], ids=["refs_xla", "refs", "omaps", "omaps_mega", "unknown_model"])
+    (dict(solve="omap"), NotImplementedError, "Queue 1, item 5"),
+    (dict(solve="horizon_parallel"), NotImplementedError, "Queue 1, item 7"),
+    (dict(solve="horizon_parallel", ddp=True), ValueError,
+     "not supported with horizon_parallel"),
+], ids=["omaps", "omaps_mega", "omaps_refs", "unknown_model", "ilqr_omap",
+        "ilqr_horizon_parallel", "ilqr_ddp_horizon_parallel"])
 def test_unported_paths_raise(kw, exc, match):
-    """Per-knot setpoints off the kernel route wait for the single-scenario
-    solver, grid obstacle maps for `ObstacleMap`; a family the lane stages
-    are not specialized for raises."""
+    """Grid obstacle maps wait for `ObstacleMap` (and with per-knot
+    profiles refuse as the JAX package does), the horizon-parallel
+    backward for its port; a family the lane stages are not specialized
+    for raises; the single-scenario solver keeps the JAX package's
+    refusal of DDP under horizon_parallel."""
     z0, coeffs = numpy_scenarios(0, B)
-    cfg_kw = {k: kw.pop(k) for k in ("backward", "model") if k in kw}
+    solve = kw.pop("solve", None)
+    cfg_kw = {k: kw.pop(k) for k in ("backward", "model", "ddp") if k in kw}
+    if solve is not None:
+        if solve == "horizon_parallel":
+            cfg_kw["horizon_parallel"] = True
+        else:
+            kw["omap"] = object()
+        with pytest.raises(exc, match=match):
+            ilqr.solve(torch.tensor(z0), torch.tensor(coeffs), MPCParams(),
+                       SolverConfig(n_steps=N, **cfg_kw), **kw)
+        return
     with pytest.raises(exc, match=match):
         batch_solve_lane(torch.tensor(z0), torch.tensor(coeffs), MPCParams(),
                          SolverConfig(n_steps=N, **cfg_kw), **kw)
+
+
+@pytest.mark.parametrize("backward", ["xla", "auto"],
+                         ids=["refs_xla", "refs"])
+def test_refs_off_the_kernel_route(backward):
+    """Per-knot setpoint profiles off the kernel route (f64 here) run on
+    the registry-generic engine, as in the JAX package: the result is
+    `engine.batch_solve`'s bit for bit, and it tracks the profile (its
+    terminal speed moves toward the profile's last knot)."""
+    z0, coeffs = (torch.tensor(a) for a in numpy_scenarios(0, B))
+    refs = torch.tensor(numpy_refs(1, B, N, noise=0.0))
+    cfg = SolverConfig(n_steps=N, max_sqp_iters=20, backward=backward)
+    res = batch_solve_lane(z0, coeffs, MPCParams(), cfg, refs=refs)
+    direct = batch_solve(z0, coeffs, MPCParams(), cfg, refs=refs)
+    for f in ("us", "zs", "cost", "converged", "n_iters"):
+        assert torch.equal(getattr(res, f), getattr(direct, f)), f
+    assert float(res.converged.double().mean()) > 0.95
+    scalar = batch_solve_lane(z0, coeffs, MPCParams(), cfg)
+    v_end = refs[:, -1, 2]
+    assert float((res.zs[:, -1, 3] - v_end).abs().mean()) < float(
+        (scalar.zs[:, -1, 3] - v_end).abs().mean())

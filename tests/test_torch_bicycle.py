@@ -36,13 +36,21 @@ from mpc_ros_tpu_torch.kernels import solve_mega
 from mpc_ros_tpu_torch.kernels.pack import pack_params
 from mpc_ros_tpu_torch.models import bicycle, get_model
 from mpc_ros_tpu_torch.solver import batch_lane as tbl
-from mpc_ros_tpu_torch.testing import numpy_scenarios
+from mpc_ros_tpu_torch.testing import (numpy_scenarios, torch_threads)
 
 TOL = 1e-12
 B = 128
 N = 12
 LANE_LF = {"lf": np.linspace(0.3, 0.8, B), "max_steer": 0.5}
 
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tests run many small ops, and the suite
+    runs in several processes at once (`testing.torch_threads`)."""
+    with torch_threads(1):
+        yield
 
 def _t(a, dtype=torch.float64):
     return torch.tensor(np.asarray(a), dtype=dtype)

@@ -15,10 +15,18 @@ from mpc_ros_tpu.solver import batch_lane as jbl
 from mpc_ros_tpu_torch.config import MPCParams
 from mpc_ros_tpu_torch.kernels import forward
 from mpc_ros_tpu_torch.kernels.pack import pack_params
-from mpc_ros_tpu_torch.testing import numpy_scenarios
+from mpc_ros_tpu_torch.testing import (numpy_scenarios, torch_threads)
 
 B = 128
 
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tests run many small ops, and the suite
+    runs in several processes at once (`testing.torch_threads`)."""
+    with torch_threads(1):
+        yield
 
 def make_inputs(seed, T):
     """A rollout of random controls, its cost, the gains of one backward

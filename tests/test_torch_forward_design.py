@@ -24,13 +24,21 @@ import torch
 from mpc_ros_tpu_torch.config import MPCParams
 from mpc_ros_tpu_torch.kernels import forward
 from mpc_ros_tpu_torch.kernels.pack import P_DT, pack_params
-from mpc_ros_tpu_torch.testing import plant_nonfinite
+from mpc_ros_tpu_torch.testing import (plant_nonfinite, torch_threads)
 from test_torch_forward import B, make_inputs
 
 # planted lanes: NaN / inf / 1e30 in turn, and one with act = 0.5
 PLANTED = (40, 47, 55, 62, 70, 77, 85, 93, 101)
 HALF_ACT = 110
 
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tests run many small ops, and the suite
+    runs in several processes at once (`testing.torch_threads`)."""
+    with torch_threads(1):
+        yield
 
 def inputs(seed, T, dtype, plant=True):
     inp = make_inputs(seed, T)

@@ -1,0 +1,101 @@
+"""The whole-solve kernel's re-roll on lanes that hold NaN, inf or an
+overflowing coefficient, its design transcribed in PyTorch and held
+against the plain version bit for bit.
+
+The kernel (`kernels/csrc/solve_mega.cu`) replays the line search's
+recorded controls on an accepted step and skips the re-roll on a rejected
+one — exact only while every row the backward read (s, u) or wrote (k, K)
+is finite, which its running sum checks (`solve_mega.replay_check`).
+Where the check fails it runs the TPU kernel's re-roll, u_b + alpha_sel k
++ K ds recomputed, clipped, stepped and blended with upd. The plain
+version always blends. `solve_mega_plain(design=True)` runs the kernel's
+paths on the plain version's own operations; on lanes planted by
+`testing.plant_nonfinite` (NaN in the initial state, inf in a
+coefficient, 1e30 in the leading coefficient) it must give every output
+as the plain version does, NaN for NaN and inf for inf, in float32 and
+float64, for the diff drive (fast and exact trig), the bicycle, blobs and
+setpoint profiles, and at a cap where the planted lanes stall (mu at its
+ceiling after 14-15 rejected steps).
+
+Not covered: a lane that is done while others run. The kernel leaves it
+as it is (its thread has left the loop); the plain version, like the TPU
+kernel within a tile, goes on blending it, which changes it only where
+its recomputed rollout is not finite (ROADMAP Queue 3). The planted lanes
+here finish last.
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+from mpc_ros_tpu_torch.kernels import solve_mega
+from mpc_ros_tpu_torch.testing import (plant_nonfinite, torch_threads)
+from test_torch_reroll import B, _case
+
+LANES = list(range(5, B, 23))
+
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tests run many small ops, and the suite
+    runs in several processes at once (`testing.torch_threads`)."""
+    with torch_threads(1):
+        yield
+
+def _equal(a, b):
+    """Bit for bit but for a zero's sign, NaN where the other has NaN."""
+    return (torch.equal(a.isnan(), b.isnan())
+            and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+
+
+@pytest.mark.parametrize("case,cap", [
+    ("diff_drive", 12), ("exact", 12), ("bicycle", 12), ("blobs", 12),
+    ("refs", 12), ("diff_drive", 30)],
+    ids=["diff_drive", "exact", "bicycle", "blobs", "refs", "cap30"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_design_equals_plain_on_nonfinite_lanes(case, cap, dtype):
+    ins, cfg, blobs, refs = _case(case, dtype)
+    cfg = dataclasses.replace(cfg, max_sqp_iters=cap)
+    planted = plant_nonfinite({"z": ins[0], "coeffs": ins[1]}, LANES)
+    bad = (planted["z"], planted["coeffs"]) + ins[2:]
+    kw = dict(blobs=blobs, refs=refs)
+    plain = solve_mega.solve_mega_plain(*bad, cfg, **kw)
+    design = solve_mega.solve_mega_plain(*bad, cfg, design=True, **kw)
+    for a, b in zip(design, plain):
+        assert _equal(a, b)
+    # planted lanes turned to NaN through the blend, the others kept
+    # finite; on clean inputs the two versions agree everywhere
+    ss, us = plain[0], plain[1]
+    assert bool(ss[..., LANES].isnan().any())
+    if cap == 30:
+        assert bool((plain[7][LANES] == 1.0).all())
+    clean_p = solve_mega.solve_mega_plain(*ins, cfg, **kw)
+    clean_d = solve_mega.solve_mega_plain(*ins, cfg, design=True, **kw)
+    for a, b in zip(clean_d, clean_p):
+        assert torch.equal(a, b)
+    others = [i for i in range(B) if i not in LANES]
+    assert bool(ss[..., others].isfinite().all())
+    assert bool(us[..., others].isfinite().all())
+
+
+def test_replay_check_flags_exactly_the_nonfinite_rows():
+    """The check's sum is finite on a finite trajectory, and not finite
+    once any state, control or gain of a lane is NaN or infinite."""
+    g = torch.Generator().manual_seed(0)
+    s = torch.randn(6, 8, generator=g)
+    u = torch.randn(2, 8, generator=g)
+    k = torch.randn(2, 8, generator=g)
+    K = torch.randn(2, 8, 8, generator=g)
+    assert bool(solve_mega.replay_check(s, u).isfinite().all())
+    assert bool(solve_mega.replay_check(gains=(k, K)).isfinite().all())
+    s[3, 1] = float("inf")
+    u[0, 2] = float("nan")
+    K[1, 6, 3] = float("-inf")
+    K[0, 4, 5] = float("nan")            # column 4 is not read
+    chk = solve_mega.replay_check(s, u) + solve_mega.replay_check(
+        gains=(k, K))
+    assert chk.isfinite().tolist() == [True, False, False, False, True,
+                                       True, True, True]

@@ -24,7 +24,8 @@ from mpc_ros_tpu_torch.engine import receding_horizon_rollout
 from mpc_ros_tpu_torch.kernels.solve_mega import solve_mega_plain
 from mpc_ros_tpu_torch.models.costs import scaled_solver_knobs
 from mpc_ros_tpu_torch.solver import batch_lane as tbl
-from mpc_ros_tpu_torch.testing import numpy_scenarios, scaled_weights
+from mpc_ros_tpu_torch.testing import (numpy_scenarios, scaled_weights,
+                                       torch_threads)
 from mpc_ros_tpu_torch.verify import parity_gates
 
 B = 128
@@ -33,6 +34,14 @@ T = N - 1
 F64 = (jnp.float64, torch.float64)
 F32 = (jnp.float32, torch.float32)
 
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tests run many small ops, and the suite
+    runs in several processes at once (`testing.torch_threads`)."""
+    with torch_threads(1):
+        yield
 
 def _lane_leaves():
     return scaled_weights(dataclasses.asdict(JMPCParams()), B)

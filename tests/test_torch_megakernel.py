@@ -17,11 +17,20 @@ from mpc_ros_tpu.kernels.solve_pallas import solve_pallas
 from mpc_ros_tpu_torch.config import MPCParams, SolverConfig
 from mpc_ros_tpu_torch.kernels import solve_mega
 from mpc_ros_tpu_torch.kernels.pack import pack_params
-from mpc_ros_tpu_torch.testing import numpy_scenarios, scaled_weights
+from mpc_ros_tpu_torch.testing import (numpy_scenarios, scaled_weights,
+                                       torch_threads)
 from mpc_ros_tpu_torch.verify import parity_gates
 
 B = 128
 
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tests run many small ops, and the suite
+    runs in several processes at once (`testing.torch_threads`)."""
+    with torch_threads(1):
+        yield
 
 def _inputs(seed, n_steps, lane_weights):
     z0, coeffs = numpy_scenarios(seed, B)

@@ -35,7 +35,8 @@ from mpc_ros_tpu_torch.kernels import solve_mega
 from mpc_ros_tpu_torch.kernels.pack import pack_params
 from mpc_ros_tpu_torch.models import obstacles
 from mpc_ros_tpu_torch.solver import batch_lane as tbl
-from mpc_ros_tpu_torch.testing import numpy_blobs, numpy_scenarios
+from mpc_ros_tpu_torch.testing import (numpy_blobs, numpy_scenarios,
+                                       torch_threads)
 from mpc_ros_tpu_torch.verify import parity_gates
 
 TOL = 1e-12
@@ -43,6 +44,14 @@ B = 128
 N = 12
 F64 = (jnp.float64, torch.float64)
 
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tests run many small ops, and the suite
+    runs in several processes at once (`testing.torch_threads`)."""
+    with torch_threads(1):
+        yield
 
 def _t(a, dtype=torch.float64):
     return torch.tensor(np.asarray(a), dtype=dtype)

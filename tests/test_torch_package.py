@@ -32,7 +32,9 @@ def test_no_jax_imports():
     for mod in ("kernels/backward_fused.py", "kernels/forward.py",
                 "kernels/solve_mega.py", "models/costs.py",
                 "solver/batch_lane.py", "engine/presort.py",
-                "engine/sweep.py"):
+                "engine/sweep.py", "solver/ilqr.py", "solver/boxqp.py",
+                "engine/batch.py", "models/base.py", "models/diff_drive.py",
+                "models/bicycle.py"):
         assert f"mpc_ros_tpu_torch/{mod}" in names, mod
     bad = {}
     for path in FILES:

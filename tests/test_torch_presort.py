@@ -12,11 +12,19 @@ from mpc_ros_tpu.engine import presort as jpresort
 from mpc_ros_tpu_torch.config import MPCParams, SolverConfig
 from mpc_ros_tpu_torch.engine import presort
 from mpc_ros_tpu_torch.solver.batch_lane import batch_solve_lane
-from mpc_ros_tpu_torch.testing import numpy_scenarios
+from mpc_ros_tpu_torch.testing import (numpy_scenarios, torch_threads)
 
 CFG = SolverConfig(n_steps=30, max_sqp_iters=12, ls_iters=4, ddp=True,
                    tol_grad=1e-4)
 
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tests run many small ops, and the suite
+    runs in several processes at once (`testing.torch_threads`)."""
+    with torch_threads(1):
+        yield
 
 @pytest.mark.parametrize("blobs", [False, True], ids=["plain", "blobs"])
 def test_features_fit_predict_match_jax(blobs):

@@ -17,7 +17,7 @@ from mpc_ros_tpu.engine.receding import receding_horizon_rollout as jroll
 from mpc_ros_tpu_torch.config import MPCParams, SolverConfig
 from mpc_ros_tpu_torch.engine import receding_horizon_rollout
 from mpc_ros_tpu_torch.kernels import solve_mega
-from mpc_ros_tpu_torch.testing import numpy_scenarios
+from mpc_ros_tpu_torch.testing import (numpy_scenarios, torch_threads)
 from mpc_ros_tpu_torch.verify import parity_gates
 
 B = 128
@@ -25,6 +25,14 @@ N = 12
 CYCLES = 3
 KW = dict(n_steps=N, max_sqp_iters=12, ls_iters=4, tol_grad=1e-4)
 
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tests run many small ops, and the suite
+    runs in several processes at once (`testing.torch_threads`)."""
+    with torch_threads(1):
+        yield
 
 @pytest.fixture(scope="module")
 def traces():

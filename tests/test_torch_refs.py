@@ -27,18 +27,27 @@ from mpc_ros_tpu.config import SolverConfig as JSolverConfig
 from mpc_ros_tpu.kernels.backward_fused_pallas import pack_params as jpack
 from mpc_ros_tpu.kernels.solve_pallas import solve_pallas
 from mpc_ros_tpu.models.obstacles import GaussianObstacles as JBlobs
+from mpc_ros_tpu.solver import batch_lane as jbl
 from mpc_ros_tpu_torch.config import MPCParams, SolverConfig
 from mpc_ros_tpu_torch.kernels import solve_mega
 from mpc_ros_tpu_torch.kernels.pack import pack_params
 from mpc_ros_tpu_torch.models.obstacles import GaussianObstacles
 from mpc_ros_tpu_torch.solver import batch_lane as tbl
 from mpc_ros_tpu_torch.testing import (numpy_blobs, numpy_refs,
-                                       numpy_scenarios)
+                                       numpy_scenarios, torch_threads)
 from mpc_ros_tpu_torch.verify import parity_gates
 
 B = 128
 N = 12
 
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tests run many small ops, and the suite
+    runs in several processes at once (`testing.torch_threads`)."""
+    with torch_threads(1):
+        yield
 
 def _t(a, dtype=torch.float64):
     return torch.tensor(np.asarray(a), dtype=dtype)
@@ -134,7 +143,8 @@ def test_batch_solve_lane_takes_refs_on_the_kernel_route():
     done_frac = 1 a lane's result does not depend on its neighbours, so
     it holds to the single pass at the `kernel_verify` gates, the
     line-search state restarting between the passes). f64 is off the
-    kernel rule, where a profile raises."""
+    kernel rule: there the profile runs on the registry-generic engine,
+    held against the JAX package's fallback in f64."""
     f32 = torch.float32
     z0, coeffs = (_t(a, f32) for a in numpy_scenarios(4, B))
     refs = _t(numpy_refs(5, B, N), f32)
@@ -155,6 +165,20 @@ def test_batch_solve_lane_takes_refs_on_the_kernel_route():
                      res.us.numpy(), res.cost.numpy(),
                      res.converged.numpy(), res.n_iters.numpy(), N)
     assert g["ok"], g
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        tbl.batch_solve_lane(z0.double(), coeffs.double(), MPCParams(), cfg,
-                             refs=refs.double())
+    # f64 is off the kernel rule: the profile runs on the registry-generic
+    # engine, as the JAX package's batch_solve_lane does
+    r64 = tbl.batch_solve_lane(z0.double(), coeffs.double(), MPCParams(),
+                               cfg, refs=refs.double())
+    j64 = jbl.batch_solve_lane(
+        jnp.asarray(z0.double().numpy()), jnp.asarray(coeffs.double().numpy()),
+        JMPCParams().astype(jnp.float64),
+        JSolverConfig(n_steps=N, max_sqp_iters=12, backward="mega",
+                      tol_grad=1e-4),
+        refs=jnp.asarray(refs.double().numpy()))
+    np.testing.assert_array_equal(r64.n_iters.numpy(), np.asarray(j64.n_iters))
+    np.testing.assert_array_equal(r64.converged.numpy(),
+                                  np.asarray(j64.converged))
+    np.testing.assert_allclose(r64.us.numpy(), np.asarray(j64.us), rtol=0,
+                               atol=1e-8)
+    np.testing.assert_allclose(r64.cost.numpy(), np.asarray(j64.cost),
+                               rtol=1e-10)

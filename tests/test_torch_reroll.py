@@ -16,11 +16,20 @@ from mpc_ros_tpu_torch.config import MPCParams, SolverConfig
 from mpc_ros_tpu_torch.kernels import solve_mega
 from mpc_ros_tpu_torch.kernels.pack import pack_params
 from mpc_ros_tpu_torch.models.obstacles import GaussianObstacles
-from mpc_ros_tpu_torch.testing import numpy_blobs, numpy_refs, numpy_scenarios
+from mpc_ros_tpu_torch.testing import (numpy_blobs, numpy_refs,
+                                       numpy_scenarios, torch_threads)
 
 B = 256
 N = 12
 
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tests run many small ops, and the suite
+    runs in several processes at once (`testing.torch_threads`)."""
+    with torch_threads(1):
+        yield
 
 def _case(case, dtype, seed=3):
     """(inputs, config, blobs, refs) of one case at N=12, B=256."""

@@ -27,11 +27,20 @@ from mpc_ros_tpu.kernels.backward_fused_pallas import pack_params as jpack
 from mpc_ros_tpu_torch.config import MPCParams, SolverConfig
 from mpc_ros_tpu_torch.kernels import solve_mega
 from mpc_ros_tpu_torch.kernels.pack import pack_params
-from mpc_ros_tpu_torch.testing import numpy_scenarios, scaled_weights
+from mpc_ros_tpu_torch.testing import (numpy_scenarios, scaled_weights,
+                                       torch_threads)
 from mpc_ros_tpu_torch.verify import parity_gates
 
 HARD = dict(pose_scale=0.8, curve_scale=0.6)
 
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tests run many small ops, and the suite
+    runs in several processes at once (`testing.torch_threads`)."""
+    with torch_threads(1):
+        yield
 
 def _inputs(seed, B, n_steps, lane_weights=False, **draw):
     """Batch-last numpy inputs (zT, cT, lb, ub, u0) and the MPCParams

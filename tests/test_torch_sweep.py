@@ -16,12 +16,21 @@ from mpc_ros_tpu.config import SolverConfig as JSolverConfig
 from mpc_ros_tpu.engine import sweep as jsweep
 from mpc_ros_tpu_torch.config import MPCParams, SolverConfig
 from mpc_ros_tpu_torch.engine import sweep
-from mpc_ros_tpu_torch.testing import WEIGHT_NAMES, numpy_scenarios
+from mpc_ros_tpu_torch.testing import (numpy_scenarios, torch_threads,
+                                       WEIGHT_NAMES)
 
 N_CAND = 4
 N_SCEN = 256
 KW = dict(n_steps=20, max_sqp_iters=12, tol_grad=1e-4)
 
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tests run many small ops, and the suite
+    runs in several processes at once (`testing.torch_threads`)."""
+    with torch_threads(1):
+        yield
 
 def _candidates():
     rng = np.random.default_rng(3)
@@ -106,9 +115,39 @@ def test_sweep_falls_back_to_most_converged():
     assert sw.best_index == int(torch.argmax(sw.converged_frac))
 
 
-def test_sweep_off_the_lane_rule_is_not_ported():
-    cands = sweep.sample_weight_candidates(torch.Generator().manual_seed(1),
-                                           3, MPCParams())
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        sweep.tuning_sweep(torch.Generator(), cands, 100,
-                           SolverConfig(n_steps=12))
+def test_sweep_off_the_lane_rule(monkeypatch):
+    """3 candidates x 100 scenarios (300 lanes, not a multiple of 128) run
+    on `batch_solve_swept` in both packages: in f64 the same scores, the
+    same winner, equal iteration counts and convergence."""
+    n_scen = 100
+    z0, coeffs = numpy_scenarios(6, n_scen)
+    monkeypatch.setattr(
+        jsweep, "make_random_scenarios",
+        lambda key, n, dtype: (jnp.asarray(z0, dtype),
+                               jnp.asarray(coeffs, dtype)))
+    monkeypatch.setattr(
+        sweep, "make_random_scenarios",
+        lambda gen, n, dtype: (torch.tensor(z0, dtype=dtype),
+                               torch.tensor(coeffs, dtype=dtype)))
+    leaves = {k: v[:3] for k, v in _candidates().items()}
+    kw = dict(n_steps=12, max_sqp_iters=20)
+    import jax
+
+    ref = jsweep.tuning_sweep(
+        jax.random.PRNGKey(0),
+        JMPCParams(**{k: jnp.asarray(v) for k, v in leaves.items()}),
+        n_scen, JSolverConfig(**kw), dtype=jnp.float64)
+    ours = sweep.tuning_sweep(
+        torch.Generator().manual_seed(0),
+        MPCParams.from_numpy(leaves, dtype=torch.float64), n_scen,
+        SolverConfig(**kw), dtype=torch.float64)
+    assert ours.best_index == ref.best_index
+    np.testing.assert_allclose(ours.mean_cost.numpy(),
+                               np.asarray(ref.mean_cost), rtol=1e-10)
+    # means of equal per-lane counts, summed in different orders
+    np.testing.assert_allclose(ours.converged_frac.numpy(),
+                               np.asarray(ref.converged_frac), rtol=1e-14)
+    np.testing.assert_allclose(ours.mean_iters.numpy(),
+                               np.asarray(ref.mean_iters), rtol=1e-14)
+    np.testing.assert_allclose(ours.mean_terminal_cte.numpy(),
+                               np.asarray(ref.mean_terminal_cte), rtol=1e-8)
