@@ -103,7 +103,18 @@ them and never falls back to the CPU. Phases, one output line each:
     sweep, 8 candidates x 2,000 scenarios, on `batch_solve_swept`;
 23. one scenario through `ilqr.solve` at N=30 and N=100, cold and warm,
     the median wall time and the iterations, each against the same solve
-    in float64 on the CPU (relative cost <= 1e-3).
+    in float64 on the CPU (relative cost <= 1e-3);
+24. the single-robot closed loop: `MPCPlanner` + `run_closed_loop` over
+    the whole infinity course on the card (float32, N=20, the planner of
+    tests/test_closed_loop.py) — the goal reached within the JAX envelope
+    (mean geometric error < 0.08 m, max < 0.25 m), every record finite,
+    the warm carry and parameters on the card; cycles, course time, ms
+    per cycle (p50 / p99 / max), iterations and host reads per cycle;
+25. its first 20 cycles in float64 on the card against the port on the
+    CPU: commands within 1e-6 and the same FSM state every cycle;
+26. `TrajectoryTracker` on the infinity course at 0.4 m/s, the first 150
+    cycles on the card: every record finite, dist_to_ref < 0.55 m; ms per
+    cycle. No kernel runs on phases 21-26.
 
 Every timed window of the whole-solve kernel (phases 4, 5, 10-12, 16,
 18, 19) reports the median, min and max of WINDOW launches, the SM clock
@@ -164,6 +175,8 @@ ROUTE_CYCLES = 3
 PROD = SolverConfig(n_steps=N_STEPS, max_sqp_iters=12, ls_iters=4, ddp=True,
                     tol_grad=1e-4, trig="fast", scale_adaptive=True,
                     schedule="auto")
+# the same under the per-block exit (phase 6b's lanes done before others)
+PROD_TILE = dataclasses.replace(PROD, done_frac=0.97)
 # the legacy two-kernel route: Gauss-Newton, 8 candidates, no adaptive
 # weight scale (the knobs `backward="pallas"` resolves)
 ROUTE = SolverConfig(n_steps=N_STEPS, max_sqp_iters=12, tol_grad=1e-4,
@@ -863,7 +876,8 @@ def nonfinite_lanes(dev) -> dict:
     propagate NaN through clip and max as jnp.clip does: K4 and K5 on
     iteration 1's route inputs (B=1,024), K1 in its production and
     bicycle variants (N=30, B=8,192; NaN in the initial state instead of
-    ss). On the
+    ss), and K1 on one block (B=128) with the planted lanes resumed done
+    while the others run, per lane and under the per-block exit. On the
     planted lanes NaN and inf where the plain version has them and the
     finite values within LANE_TOL; every other lane bit for bit as on the
     clean inputs (`nonfinite_agreement`), K1's trajectories included: a
@@ -903,7 +917,28 @@ def nonfinite_lanes(dev) -> dict:
         p = solve_mega.solve_mega_plain(*bad, cfg)
         clean = solve_mega.solve_mega_cuda(*ins, cfg)
         out[name] = nonfinite_agreement(k, p, clean, k1_lanes, LANE_TOL)
-    emit("nonfinite_lanes", lanes=lanes, k1_lanes=k1_lanes, **out)
+    # one block (B = TILE, the plain version's batch and the kernel's block
+    # the same lanes): planted lanes resumed done beside running ones, which
+    # the plain version blends with act = 0 while the others run
+    Bt = solve_mega.TILE
+    z0s, coeffs = scenarios(12, Bt, dev)
+    done_lanes = [5, 40, 77, 100]
+    done = torch.zeros(Bt, device=dev)
+    done[done_lanes + [9, 60]] = 1.0
+    resume = (done, torch.zeros_like(done), torch.full_like(done, 1e-6),
+              torch.full_like(done, float("inf")))
+    for name, cfg in (("solve_mega[done,per_lane]", PROD),
+                      ("solve_mega[done,tile]", PROD_TILE)):
+        ins = lane_inputs(z0s, coeffs, params(Bt, dev, False), cfg)
+        planted = plant_nonfinite({"z": ins[0], "coeffs": ins[1]},
+                                  done_lanes)
+        bad = (planted["z"], planted["coeffs"]) + tuple(ins[2:])
+        k = solve_mega.solve_mega_cuda(*bad, cfg, resume=resume)
+        p = solve_mega.solve_mega_plain(*bad, cfg, resume=resume)
+        clean = solve_mega.solve_mega_cuda(*ins, cfg, resume=resume)
+        out[name] = nonfinite_agreement(k, p, clean, done_lanes, LANE_TOL)
+    emit("nonfinite_lanes", lanes=lanes, k1_lanes=k1_lanes,
+         done_lanes=done_lanes, **out)
     for name, rec in out.items():
         if not rec["ok"] or not rec["planted_lanes_with_nan"]:
             raise SystemExit(f"{name} on non-finite lanes disagrees with "
@@ -2070,6 +2105,159 @@ def single_scenario(dev) -> dict:
     return out
 
 
+# The single-robot closed loop (phases 24-26): no kernel on this path (the
+# JAX loop solves through `ilqr.solve` under jit, never a `pallas_call`).
+# The planner's configuration is tests/test_closed_loop.py's, at its full
+# horizon; the bars are the JAX package's envelopes.
+LOOP_PARAMS = dict(dt=0.1, ref_vel=0.5, max_angvel=1.5, w_cte=300.0,
+                   w_angvel_d=10.0, w_accel_d=10.0)
+LOOP_STEPS = 20
+LOOP_MEAN_GEO, LOOP_MAX_GEO = 0.08, 0.25
+# phase 25: the first cycles on the card against the port on the CPU
+PARITY_CYCLES = 20
+PARITY_TOL = 1e-6
+# phase 26: the trajectory tracker's first cycles, the bar of
+# tests/test_trajectory_tracking.py:29
+TRAJ_SPEED = 0.4
+TRAJ_CYCLES = 150
+TRAJ_MAX_DIST = 0.55
+
+
+def loop_planner(dev, dtype=torch.float32):
+    from mpc_ros_tpu_torch.config import PlannerConfig
+    from mpc_ros_tpu_torch.planner import MPCPlanner
+
+    return MPCPlanner(MPCParams(**LOOP_PARAMS),
+                      SolverConfig(n_steps=LOOP_STEPS),
+                      PlannerConfig(local_plan_length=2.5), dtype=dtype,
+                      device=dev)
+
+
+def cycle_ms(times_s) -> dict:
+    ms = np.asarray(times_s) * 1e3
+    return dict(p50=float(np.percentile(ms, 50)),
+                p99=float(np.percentile(ms, 99)), max=float(ms.max()),
+                first=float(ms[0]))
+
+
+def closed_loop(dev) -> dict:
+    """Phase 24: `MPCPlanner` + `run_closed_loop` over the whole infinity
+    course on the card in float32: the goal reached, the geometric error
+    within the JAX envelope, every record finite, the planner's warm carry
+    and parameters on the card; cycles, course time, ms per cycle (the
+    planner's own clock around `compute_velocity_commands`, which ends in
+    the cycle's one fetch), SQP iterations and host reads per cycle (the
+    solver's per-iteration read of "all done", besides the cycle's one
+    packed upload and one packed fetch), the ms of each stage of one
+    iteration at N=20 (`ilqr_stage_ms`), and no kernel launched."""
+    from mpc_ros_tpu_torch.obs import RunStats
+    from mpc_ros_tpu_torch.sim import get_shape, run_closed_loop
+    from mpc_ros_tpu_torch.solver import ilqr
+
+    plan = get_shape("infinity")
+    planner = loop_planner(dev)
+    stats = RunStats()
+    planner.on_cycle = stats.record_cycle
+    reset_launches()
+    reads = ilqr.host_reads
+    res = run_closed_loop(planner, plan, max_cycles=1200)
+    reads = ilqr.host_reads - reads
+    d = np.array([np.min(np.hypot(plan[:, 0] - q[0], plan[:, 1] - q[1]))
+                  for q in res.poses])
+    tr = planner.tracker
+    out = dict(
+        reached=res.reached, cycles=res.n_cycles,
+        course_time_s=res.course_time_s, wall_s=res.wall_time_s,
+        geo_err_mean_m=float(d.mean()), geo_err_max_m=float(d.max()),
+        bars=dict(mean=LOOP_MEAN_GEO, max=LOOP_MAX_GEO),
+        cycle_ms=cycle_ms(stats.cycle_times_s),
+        solves=stats.n_solves, converged_frac=stats.summary()[
+            "converged_frac"],
+        mean_iters=float(np.mean(stats.solve_iters)),
+        max_iters=int(np.max(stats.solve_iters)),
+        host_reads_per_solve=reads / max(stats.n_solves, 1),
+        uploads_per_solve=1, fetches_per_solve=1,
+        carry_device=str(tr._warm_dev.device),
+        params_device=str(tr.params.w_cte.device),
+        kernel_launches=solve_mega.launches + backward_fused.launches
+        + forward.launches,
+        stage_ms=ilqr_stage_ms(*(a[0] for a in scenarios(23, 1, dev)),
+                               SolverConfig(n_steps=LOOP_STEPS)),
+        states={s: sum(x.value == s for x in res.states)
+                for s in sorted({x.value for x in res.states})})
+    emit("closed_loop", **out)
+    if not (res.reached and d.mean() < LOOP_MEAN_GEO
+            and d.max() < LOOP_MAX_GEO
+            and bool(np.all(np.isfinite(res.records)))
+            and tr._warm_dev.is_cuda and tr.params.w_cte.is_cuda):
+        raise SystemExit(f"closed loop on the card: {out}")
+    return out
+
+
+def closed_loop_cpu_parity(dev) -> dict:
+    """Phase 25: the course's first PARITY_CYCLES cycles in float64, the
+    planner on the card against the port's planner on the CPU: the
+    commands within PARITY_TOL and the same FSM state every cycle (not a
+    kernel check: it catches host logic that depends on the device)."""
+    from mpc_ros_tpu_torch.sim import get_shape, run_closed_loop
+
+    plan = get_shape("infinity")
+    runs = [run_closed_loop(loop_planner(d, torch.float64), plan,
+                            max_cycles=PARITY_CYCLES)
+            for d in (dev, torch.device("cpu"))]
+    gpu, cpu = runs
+    du = float(np.max(np.abs(gpu.records[:, 3:] - cpu.records[:, 3:])))
+    same = [a.value for a in gpu.states] == [b.value for b in cpu.states]
+    out = dict(cycles=gpu.n_cycles, max_abs_dcmd=du, tol=PARITY_TOL,
+               same_states=same,
+               max_abs_dpose=float(np.max(np.abs(gpu.poses - cpu.poses))))
+    emit("closed_loop_cpu_parity", **out)
+    if not (same and du <= PARITY_TOL and gpu.n_cycles == PARITY_CYCLES
+            and cpu.n_cycles == PARITY_CYCLES):
+        raise SystemExit(f"closed loop, card against CPU: {out}")
+    return out
+
+
+def trajectory_tracking(dev) -> dict:
+    """Phase 26: `TrajectoryTracker` on the infinity course at TRAJ_SPEED,
+    the first TRAJ_CYCLES cycles on the card in float32: every record
+    finite, dist_to_ref below TRAJ_MAX_DIST; ms per cycle."""
+    from mpc_ros_tpu_torch.config import PlannerConfig
+    from mpc_ros_tpu_torch.planner import TimedTrajectory, TrajectoryTracker
+    from mpc_ros_tpu_torch.sim import get_shape
+    from mpc_ros_tpu_torch.sim.simulator import run_trajectory_tracking
+
+    tracker = TrajectoryTracker(
+        MPCParams(**{k: v for k, v in LOOP_PARAMS.items()
+                     if k != "ref_vel"}),
+        SolverConfig(n_steps=LOOP_STEPS),
+        PlannerConfig(local_plan_length=2.5), device=dev)
+    times = []
+    compute = tracker.compute
+
+    def timed(*a):
+        t0 = time.perf_counter()
+        out = compute(*a)
+        times.append(time.perf_counter() - t0)
+        return out
+
+    tracker.compute = timed
+    traj = TimedTrajectory.from_path(get_shape("infinity"), TRAJ_SPEED)
+    res = run_trajectory_tracking(tracker, traj, max_cycles=TRAJ_CYCLES)
+    d = res.dist_to_ref
+    out = dict(cycles=res.n_cycles, wall_s=res.wall_time_s,
+               dist_to_ref_mean_m=float(d.mean()),
+               dist_to_ref_max_m=float(d.max()), bar=TRAJ_MAX_DIST,
+               cycle_ms=cycle_ms(times),
+               carry_device=str(tracker._warm_dev.device))
+    emit("trajectory_tracking", **out)
+    if not (res.n_cycles == TRAJ_CYCLES and d.max() < TRAJ_MAX_DIST
+            and bool(np.all(np.isfinite(res.records)))
+            and tracker._warm_dev.is_cuda):
+        raise SystemExit(f"trajectory tracking on the card: {out}")
+    return out
+
+
 def build_pairs(survey: bool = False) -> set:
     """Every (kernel, variant) pair the phases launch (the survey's alone
     with `survey`): the whole-solve kernel's variants, then the fused
@@ -2081,6 +2269,7 @@ def build_pairs(survey: bool = False) -> set:
     if not survey:
         cfgs += [(c, 0, False) for _, c, _ in variants()] + [
             (ROUTE_MEGA, 0, False), (BICYCLE, 0, False), (PROD, 0, True),
+            (PROD_TILE, 0, False),
             (LONG, K_MAIN, True),
             (solve_mega.compact_pass1_cfg(LONG), K_MAIN, True)] + [
             (c, K_MAIN if bl else 0, rf) for _, c, bl, rf, _ in EFG_VARIANTS]
@@ -2148,6 +2337,9 @@ def main(argv) -> None:
     engine_batch(dev)
     profiles_off_kernel(dev)
     single_scenario(dev)
+    closed_loop(dev)
+    closed_loop_cpu_parity(dev)
+    trajectory_tracking(dev)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound):
         return {"name": name, "route": "cuda",

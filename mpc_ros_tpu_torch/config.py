@@ -10,6 +10,8 @@ The counterpart of `mpc_ros_tpu/config.py`, with the same two layers:
   GN->DDP profile, the horizon-aware gate and mu floor) unchanged, so the
   two packages resolve the same knobs for the same configuration.
 
+and the planner's `PlannerConfig` / `PlannerLimits` (plain host values).
+
 Dtypes are torch dtypes; the dtype checks use `torch.finfo`.
 """
 
@@ -214,3 +216,51 @@ class SolverConfig:
     def n_constraints(self) -> int:
         """Reference NLP constraint count: 6N."""
         return 6 * self.n_steps
+
+
+def per_lane_leaf_names(params: MPCParams) -> tuple:
+    """Sorted names of the per-scenario ((B,)-shaped) MPCParams leaves (a
+    tensor's dimensions are read without moving it to the host)."""
+    return tuple(sorted(
+        f.name for f in dataclasses.fields(MPCParams)
+        if np.ndim(getattr(params, f.name)) >= 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class PlannerLimits:
+    """Generic local-planner limits (the goal tolerances and the stopped
+    check of the reference's LocalPlannerLimits)."""
+
+    xy_goal_tolerance: float = 0.2
+    yaw_goal_tolerance: float = 0.1
+    trans_stopped_vel: float = 0.1
+    theta_stopped_vel: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class PlannerConfig:
+    """Planner-level configuration; the fields and defaults are those of
+    `mpc_ros_tpu.config.PlannerConfig` (see its comments for the reference
+    behaviour behind each)."""
+
+    limits: PlannerLimits = dataclasses.field(default_factory=PlannerLimits)
+    # heading error below which Tracking engages
+    heading_yaw_error_threshold: float = 0.1
+    # FSM speed policy
+    max_speed: float = 0.7
+    min_speed: float = 0.05
+    # P-gain of the two rotation states
+    rotate_p_gain: float = 0.5
+    # one-control-period latency compensation
+    delay_mode: bool = True
+    # lookahead window [m]: the plan is clipped to this arclength before
+    # fitting
+    local_plan_length: float = 4.0
+    # plan downsampling: target number of reference segments
+    downsample_segments: int = 10
+    # cap ref_vel at sqrt(max_lat_accel / kappa) over the local window
+    curvature_slowdown: bool = False
+    max_lat_accel: float = 1.0   # [m/s^2]
+    # wrap the extracted heading error to [-pi, pi] (quirk Q13 fix)
+    wrap_etheta: bool = True
+    debug_info: bool = False

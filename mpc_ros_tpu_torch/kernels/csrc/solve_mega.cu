@@ -60,9 +60,10 @@
 // not (a lane with NaN, inf or an overflowing rollout) the lane runs the
 // TPU kernel's recompute and blend (reroll_blend), whose 0 * inf gives the
 // plain version's NaN (tests/test_torch_k1_nonfinite.py). A lane that is
-// done has left the loop and keeps its state; the TPU kernel goes on
-// blending it while its tile runs, which differs only where that lane's
-// recomputed rollout is not finite. Counted per knot and
+// done keeps its state, unless its trajectory or its last backward's rows
+// were not finite (`dirt`): such a lane goes on blending with upd = 0, as
+// the TPU kernel and the plain version do within their tile, while its
+// block runs (the design's note above the SQP loop). Counted per knot and
 // SQP iteration, the scratch traffic is 74 floats at n_ls = 4 (82 at 8):
 // the backward reads s, u, g (12) and writes k, K (16); the line search
 // reads s, u, k, K (24) and writes n_ls x 2 controls; the re-roll reads 2
@@ -410,15 +411,25 @@ __device__ __forceinline__ const float* at(const float* p, int lane) {
 // most this in magnitude (NaN compares false).
 constexpr float kFloatMax = 3.40282347e38f;
 
+// Rows 0-5 of a state and the two controls of a knot, summed in a fixed
+// order: finite only if each is (a finite sum's overflow also reads as not
+// finite, which only sends a lane down the plain version's own path).
+__device__ __forceinline__ float row_sum(const float (&s)[8], float u0,
+                                         float u1) {
+  return ((s[0] + s[1]) + (s[2] + s[3])) + ((s[4] + s[5]) + (u0 + u1));
+}
+
 // The TPU kernel's re-roll (solve_pallas.py:692-720), run on a lane whose
 // replay check failed: per knot, u = clip(u_b + alpha_sel k + K ds), the
 // step from the re-roll's own state, and the blend upd * new + (1 - upd) *
 // old of the control, the trig cache and the next state, in place (the old
 // knot t+1 is read before it is written and carried as the next stage's
 // base). The operations and their order are the plain version's, so a
-// non-finite row turns to NaN exactly where it does there.
+// non-finite row turns to NaN exactly where it does there. Returns the sum
+// of the trajectory it leaves (s0 and every row written), finite only if
+// each row is.
 template <bool BICYCLE, class TrigT>
-__device__ __forceinline__ void reroll_blend(const Lane& L, const Problem& pr,
+__device__ __forceinline__ float reroll_blend(const Lane& L, const Problem& pr,
                                           const Extras& ex, const TrigT& trig,
                                           const float (&s0)[8], float ct00,
                                           float st00, float alpha_sel,
@@ -434,6 +445,7 @@ __device__ __forceinline__ void reroll_blend(const Lane& L, const Problem& pr,
   sb[6] = 0.0f;
   sb[7] = 0.0f;
   float ct = ct00, st = st00;
+  float sum = row_sum(s0, 0.0f, 0.0f);
   for (int t = 0; t < L.T; ++t) {
     const float ub_0 = L.u[t * 2 * B], ub_1 = L.u[(t * 2 + 1) * B];
     const float k0 = L.k[t * 2 * B], k1 = L.k[(t * 2 + 1) * B];
@@ -465,15 +477,20 @@ __device__ __forceinline__ void reroll_blend(const Lane& L, const Problem& pr,
       ex.bicycle_step(pr, sa, u0, u1, ct, st, se, sn);
     else
       pr.dyn_step(sa, u0, u1, ct, st, se, sn);
-    L.u[t * 2 * B] = upd * u0 + keep * ub_0;
-    L.u[(t * 2 + 1) * B] = upd * u1 + keep * ub_1;
+    const float un0 = upd * u0 + keep * ub_0;
+    const float un1 = upd * u1 + keep * ub_1;
+    L.u[t * 2 * B] = un0;
+    L.u[(t * 2 + 1) * B] = un1;
     float* sp = L.s + (t + 1) * 8 * B;
+    float sw[8];
 #pragma unroll
     for (int r = 0; r < 6; ++r) {
       const float old = sp[r * B];
-      sp[r * B] = upd * sn[r] + keep * old;
+      sw[r] = upd * sn[r] + keep * old;
+      sp[r * B] = sw[r];
       sb[r] = old;
     }
+    sum = sum + row_sum(sw, un0, un1);
     sb[6] = ub_0;
     sb[7] = ub_1;
     if constexpr (BICYCLE)
@@ -483,6 +500,7 @@ __device__ __forceinline__ void reroll_blend(const Lane& L, const Problem& pr,
 #pragma unroll
     for (int r = 0; r < 8; ++r) sa[r] = sn[r];
   }
+  return sum;
 }
 
 template <int NLS, bool DDP, bool FAST, bool ADAPT, bool TILE_EXIT,
@@ -567,6 +585,10 @@ __global__ void __launch_bounds__(kTile)
 #pragma unroll
   for (int r = 0; r < 6; ++r) L.s[r * B] = s0[r];
   float cost;
+  // `dirt`: finite only if the lane's trajectory (rows 0-5 of s and the
+  // controls) and the rows its last backward read and wrote are; a done
+  // lane whose `dirt` is not finite goes on blending while its block runs
+  float dirt = row_sum(s0, 0.0f, 0.0f);
   {
     float s[8];
 #pragma unroll
@@ -589,6 +611,7 @@ __global__ void __launch_bounds__(kTile)
       else
         pr.dyn_step(s, u0, u1, ct, st, se, sn);
       L.put(t, u0, u1, ct, st, se, trig.ce(ct, st, s[5]), sn);
+      dirt = dirt + row_sum(sn, u0, u1);
       if constexpr (BICYCLE)
         trig.step(ct, st, s[3] * ex.invlf * u0 * dt, sn[2]);
       else
@@ -613,489 +636,521 @@ __global__ void __launch_bounds__(kTile)
     conv = a.resume[B + lane_i];
     mu = a.resume[2 * B + lane_i];
     gnorm = a.resume[3 * B + lane_i];
+    // a lane resumed done has run no backward here: it blends along
+    if (done > 0.5f) dirt = NAN;
   }
-  for (int it = 0; it < a.max_iters; ++it) {
-    if (TILE_EXIT) {
-      // the block decides together; every thread, done or not, gets here
-      if (__syncthreads_count(done > 0.5f) >= a.n_done_needed) break;
-      if (!(done < 0.5f)) continue;
-    } else if (!(done < 0.5f)) {
-      break;
+  // The plain version (and the TPU kernel within its tile) runs the body on
+  // a done lane too, with act = 0: the blend 0 * new + old changes it only
+  // where the re-roll is not finite, which needs a non-finite row in its
+  // trajectory or in its backward's gains. So a done lane whose `dirt` is
+  // not finite runs the body with act = 0 while its block runs: under
+  // TILE_EXIT in the lockstep loop, else in a second pass after the first,
+  // for as many iterations as the block's longest-running lane ran after
+  // it (the lanes are independent, so the order does not matter).
+  int it_exit = 0;  // the iterations this lane ran before it was done
+  for (int pass = 0; pass < (TILE_EXIT ? 1 : 2); ++pass) {
+    int n_it = a.max_iters;
+    if (!TILE_EXIT && pass == 1) {
+      __shared__ int most;
+      if (threadIdx.x == 0) most = 0;
+      __syncthreads();
+      atomicMax(&most, it_exit);
+      __syncthreads();
+      n_it = most - it_exit;
     }
-    const float act = 1.0f - done;
-    // gnorm starts at +inf, so the first iteration is pure GN
-    const float g_ddp = (DDP && gnorm < a.ddp_gate) ? 1.0f : 0.0f;
+    for (int it = 0; it < n_it; ++it) {
+      const bool dirty = !(fabsf(dirt) <= kFloatMax);
+      if (TILE_EXIT) {
+        // the block decides together; every thread, done or not, gets here
+        if (__syncthreads_count(done > 0.5f) >= a.n_done_needed) break;
+        if (!(done < 0.5f) && !dirty) continue;
+      } else if (pass == 0) {
+        if (!(done < 0.5f)) break;
+        it_exit = it + 1;
+      } else if (!dirty) {
+        break;
+      }
+      const float act = 1.0f - done;
+      // gnorm starts at +inf, so the first iteration is pure GN
+      const float g_ddp = (DDP && gnorm < a.ddp_gate) ? 1.0f : 0.0f;
 
-    // ---- backward scan with inline linearization ----
-    float Vs[8], V[8][8];
-    // the replay check (replay_check in solve_mega.py): a running sum of
-    // every row the backward reads (s, u) or writes (k, K), finite only if
-    // every row is
-    float chk;
-    // knots T-1 and T-2 start on their way while the terminal is read
-    L.fetch_bwd(T - 1);
-    copy_commit();
-    if (T >= 2) L.fetch_bwd(T - 2);
-    copy_commit();
-    {
-      float sT[6];
-#pragma unroll
-      for (int r = 0; r < 6; ++r) sT[r] = L.s[(T * 8 + r) * B];
-      chk = ((sT[0] + sT[1]) + (sT[2] + sT[3])) + (sT[4] + sT[5]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        Vs[i] = 0.0f;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) V[i][j] = 0.0f;
-      }
-      if constexpr (SETP) ex.ref(T, pr.rc, pr.re, pr.rv);
-      Vs[3] = wv2 * (sT[3] - pr.rv);
-      Vs[4] = wc2 * (sT[4] - pr.rc);
-      Vs[5] = we2 * (sT[5] - pr.re);
-      V[3][3] = wv2;
-      V[5][5] = we2;
-      if constexpr (BLOBS) {
-        ex.template obs_terms<DDP>(sT[0], sT[1], g_ddp, Vs[0], Vs[1],
-                                   V[0][0], V[0][1], V[1][1]);
-        V[1][0] = V[0][1];
-      }
-    }
-    float dv1 = 0.0f, dv2 = 0.0f, pg = 0.0f;
-    for (int t = T - 1; t >= 0; --t) {
-      // knot t-2 goes out; knots t and t-1 (for u_{t-1}) have arrived
-      if (t >= 2) L.fetch_bwd(t - 2);
+      // ---- backward scan with inline linearization ----
+      float Vs[8], V[8][8];
+      // the replay check (replay_check in solve_mega.py): a running sum of
+      // every row the backward reads (s, u) or writes (k, K), finite only if
+      // every row is
+      float chk;
+      // knots T-1 and T-2 start on their way while the terminal is read
+      L.fetch_bwd(T - 1);
       copy_commit();
-      copy_wait<1>();
-      const float* q = L.stage(t);
-      float s_t[8];
+      if (T >= 2) L.fetch_bwd(T - 2);
+      copy_commit();
+      {
+        float sT[6];
 #pragma unroll
-      for (int r = 0; r < 6; ++r) s_t[r] = q[r * kTile];
-      // the previous control; a select at t = 0, not a multiply: 0 * NaN
-      // from scratch would poison the state
-      if (t >= 1) {
-        const float* qp = L.stage(t - 1);
-        s_t[6] = qp[6 * kTile];
-        s_t[7] = qp[7 * kTile];
-      } else {
-        s_t[6] = 0.0f;
-        s_t[7] = 0.0f;
-      }
-      const float ut0 = q[6 * kTile], ut1 = q[7 * kTile];
-      chk = chk + ((((s_t[0] + s_t[1]) + (s_t[2] + s_t[3])) +
-                    (s_t[4] + s_t[5])) +
-                   (ut0 + ut1));
-      const float rate = t >= 1 ? 1.0f : 0.0f;
-      const float x = s_t[0], v = s_t[3], eth = s_t[5];
-      const float ct = q[8 * kTile], st = q[9 * kTile];
-      const float se = q[10 * kTile], ce = q[11 * kTile];
-      const float fp = polyder(pr.c, pr.P, x);
-      const float a02 = -v * st * dt;
-      const float a03 = ct * dt;
-      const float a12 = v * ct * dt;
-      const float a13 = st * dt;
-      const float a40 = fp;
-      const float a43 = sign * se * dt;
-      const float a45 = sign * v * ce * dt;
-      // bicycle heading rows: A[2,3] = A[5,3] = delta dt / lf and
-      // B[2,0] = B[5,0] = v dt / lf (0 and dt for the diff drive)
-      float a23 = 0.0f;
-      float b20 = dt;
-      if constexpr (BICYCLE) {
-        a23 = ut0 * ex.invlf * dt;
-        b20 = v * ex.invlf * dt;
-      }
-      if constexpr (SETP) ex.ref(t, pr.rc, pr.re, pr.rv);
-      float ogx = 0.0f, ogy = 0.0f, ohxx = 0.0f, ohxy = 0.0f, ohyy = 0.0f;
-      if constexpr (BLOBS)
-        ex.template obs_terms<DDP>(s_t[0], s_t[1], g_ddp, ogx, ogy, ohxx,
-                                   ohxy, ohyy);
-
-      const float wdw2 = 2.0f * rate * pr.wdang;
-      const float wda2 = 2.0f * rate * pr.wdacc;
-      const float du0 = ut0 - s_t[6];
-      const float du1 = ut1 - s_t[7];
-      const float lu0 = ww2 * ut0 + wdw2 * du0;
-      const float lu1 = wa2 * ut1 + wda2 * du1;
-      // Qs = l_s + A' Vs (A column 4 zero; rows 4, 6, 7 of A'Vs zero)
-      float Qs[8];
-      Qs[0] = Vs[0] + a40 * Vs[4];
-      Qs[1] = Vs[1] - Vs[4];
-      if constexpr (BLOBS) {
-        Qs[0] = ogx + Qs[0];
-        Qs[1] = ogy + Qs[1];
-      }
-      Qs[2] = a02 * Vs[0] + a12 * Vs[1] + Vs[2];
-      if constexpr (BICYCLE)
-        Qs[3] = wv2 * (v - pr.rv) + (a03 * Vs[0] + a13 * Vs[1] +
-                                     (Vs[3] + a23 * (Vs[2] + Vs[5])) +
-                                     a43 * Vs[4]);
-      else
-        Qs[3] = wv2 * (v - pr.rv) +
-                (a03 * Vs[0] + a13 * Vs[1] + Vs[3] + a43 * Vs[4]);
-      Qs[4] = wc2 * (s_t[4] - pr.rc);
-      Qs[5] = we2 * (eth - pr.re) + (a45 * Vs[4] + Vs[5]);
-      Qs[6] = -wdw2 * du0;
-      Qs[7] = -wda2 * du1;
-      const float Qu0 = lu0 + (b20 * (Vs[2] + Vs[5]) + Vs[6]);
-      const float Qu1 = lu1 + (dt * Vs[3] + Vs[7]);
-
-      // structured VA = V @ A, column j in {0, 1, 2, 3, 5}: va[j][i]
-      float va[6][8];
+        for (int r = 0; r < 6; ++r) sT[r] = L.s[(T * 8 + r) * B];
+        chk = ((sT[0] + sT[1]) + (sT[2] + sT[3])) + (sT[4] + sT[5]);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        if (i == 4) continue;
-        va[0][i] = V[i][0];
-        va[1][i] = V[i][1];
-        va[2][i] = a02 * V[i][0] + a12 * V[i][1] + V[i][2];
-        va[3][i] = a03 * V[i][0] + a13 * V[i][1] + V[i][3];
+        for (int i = 0; i < 8; ++i) {
+          Vs[i] = 0.0f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) V[i][j] = 0.0f;
+        }
+        if constexpr (SETP) ex.ref(T, pr.rc, pr.re, pr.rv);
+        Vs[3] = wv2 * (sT[3] - pr.rv);
+        Vs[4] = wc2 * (sT[4] - pr.rc);
+        Vs[5] = we2 * (sT[5] - pr.re);
+        V[3][3] = wv2;
+        V[5][5] = we2;
+        if constexpr (BLOBS) {
+          ex.template obs_terms<DDP>(sT[0], sT[1], g_ddp, Vs[0], Vs[1],
+                                     V[0][0], V[0][1], V[1][1]);
+          V[1][0] = V[0][1];
+        }
+      }
+      float dv1 = 0.0f, dv2 = 0.0f, pg = 0.0f;
+      for (int t = T - 1; t >= 0; --t) {
+        // knot t-2 goes out; knots t and t-1 (for u_{t-1}) have arrived
+        if (t >= 2) L.fetch_bwd(t - 2);
+        copy_commit();
+        copy_wait<1>();
+        const float* q = L.stage(t);
+        float s_t[8];
+#pragma unroll
+        for (int r = 0; r < 6; ++r) s_t[r] = q[r * kTile];
+        // the previous control; a select at t = 0, not a multiply: 0 * NaN
+        // from scratch would poison the state
+        if (t >= 1) {
+          const float* qp = L.stage(t - 1);
+          s_t[6] = qp[6 * kTile];
+          s_t[7] = qp[7 * kTile];
+        } else {
+          s_t[6] = 0.0f;
+          s_t[7] = 0.0f;
+        }
+        const float ut0 = q[6 * kTile], ut1 = q[7 * kTile];
+        chk = chk + ((((s_t[0] + s_t[1]) + (s_t[2] + s_t[3])) +
+                      (s_t[4] + s_t[5])) +
+                     (ut0 + ut1));
+        const float rate = t >= 1 ? 1.0f : 0.0f;
+        const float x = s_t[0], v = s_t[3], eth = s_t[5];
+        const float ct = q[8 * kTile], st = q[9 * kTile];
+        const float se = q[10 * kTile], ce = q[11 * kTile];
+        const float fp = polyder(pr.c, pr.P, x);
+        const float a02 = -v * st * dt;
+        const float a03 = ct * dt;
+        const float a12 = v * ct * dt;
+        const float a13 = st * dt;
+        const float a40 = fp;
+        const float a43 = sign * se * dt;
+        const float a45 = sign * v * ce * dt;
+        // bicycle heading rows: A[2,3] = A[5,3] = delta dt / lf and
+        // B[2,0] = B[5,0] = v dt / lf (0 and dt for the diff drive)
+        float a23 = 0.0f;
+        float b20 = dt;
+        if constexpr (BICYCLE) {
+          a23 = ut0 * ex.invlf * dt;
+          b20 = v * ex.invlf * dt;
+        }
+        if constexpr (SETP) ex.ref(t, pr.rc, pr.re, pr.rv);
+        float ogx = 0.0f, ogy = 0.0f, ohxx = 0.0f, ohxy = 0.0f, ohyy = 0.0f;
+        if constexpr (BLOBS)
+          ex.template obs_terms<DDP>(s_t[0], s_t[1], g_ddp, ogx, ogy, ohxx,
+                                     ohxy, ohyy);
+
+        const float wdw2 = 2.0f * rate * pr.wdang;
+        const float wda2 = 2.0f * rate * pr.wdacc;
+        const float du0 = ut0 - s_t[6];
+        const float du1 = ut1 - s_t[7];
+        const float lu0 = ww2 * ut0 + wdw2 * du0;
+        const float lu1 = wa2 * ut1 + wda2 * du1;
+        // Qs = l_s + A' Vs (A column 4 zero; rows 4, 6, 7 of A'Vs zero)
+        float Qs[8];
+        Qs[0] = Vs[0] + a40 * Vs[4];
+        Qs[1] = Vs[1] - Vs[4];
+        if constexpr (BLOBS) {
+          Qs[0] = ogx + Qs[0];
+          Qs[1] = ogy + Qs[1];
+        }
+        Qs[2] = a02 * Vs[0] + a12 * Vs[1] + Vs[2];
         if constexpr (BICYCLE)
-          va[3][i] = va[3][i] + a23 * (V[i][2] + V[i][5]);
-        va[5][i] = V[i][5];
-      }
-      // row 4's (4,2) and (4,5) entries are structurally zero, so the
-      // bicycle's a23 term leaves va[3][4] as it is
-      va[0][4] = a40 * wc2;
-      va[1][4] = -wc2;
-      va[3][4] = a43 * wc2;
-      va[5][4] = a45 * wc2;
+          Qs[3] = wv2 * (v - pr.rv) + (a03 * Vs[0] + a13 * Vs[1] +
+                                       (Vs[3] + a23 * (Vs[2] + Vs[5])) +
+                                       a43 * Vs[4]);
+        else
+          Qs[3] = wv2 * (v - pr.rv) +
+                  (a03 * Vs[0] + a13 * Vs[1] + Vs[3] + a43 * Vs[4]);
+        Qs[4] = wc2 * (s_t[4] - pr.rc);
+        Qs[5] = we2 * (eth - pr.re) + (a45 * Vs[4] + Vs[5]);
+        Qs[6] = -wdw2 * du0;
+        Qs[7] = -wda2 * du1;
+        const float Qu0 = lu0 + (b20 * (Vs[2] + Vs[5]) + Vs[6]);
+        const float Qu1 = lu1 + (dt * Vs[3] + Vs[7]);
 
-      // (A' V A)[i][j] for live i, j (column 2 of va has no row 4)
-      auto atva = [&](int i, int j) -> float {
-        const float* y = va[j];
-        const bool h4 = j != 2;
-        switch (i) {
-          case 0: return h4 ? y[0] + a40 * y[4] : y[0];
-          case 1: return h4 ? y[1] - y[4] : y[1];
-          case 2: return a02 * y[0] + a12 * y[1] + y[2];
-          case 3: {
-            const float e = a03 * y[0] + a13 * y[1] + y[3];
-            if constexpr (BICYCLE)
-              return (h4 ? e + a43 * y[4] : e) + a23 * (y[2] + y[5]);
-            else
-              return h4 ? e + a43 * y[4] : e;
-          }
-          default: return h4 ? a45 * y[4] + y[5] : y[5];  // i == 5
+        // structured VA = V @ A, column j in {0, 1, 2, 3, 5}: va[j][i]
+        float va[6][8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (i == 4) continue;
+          va[0][i] = V[i][0];
+          va[1][i] = V[i][1];
+          va[2][i] = a02 * V[i][0] + a12 * V[i][1] + V[i][2];
+          va[3][i] = a03 * V[i][0] + a13 * V[i][1] + V[i][3];
+          if constexpr (BICYCLE)
+            va[3][i] = va[3][i] + a23 * (V[i][2] + V[i][5]);
+          va[5][i] = V[i][5];
         }
-      };
+        // row 4's (4,2) and (4,5) entries are structurally zero, so the
+        // bicycle's a23 term leaves va[3][4] as it is
+        va[0][4] = a40 * wc2;
+        va[1][4] = -wc2;
+        va[3][4] = a43 * wc2;
+        va[5][4] = a45 * wc2;
 
-      // exact second-order dynamics terms (gated per lane)
-      float d00 = 0.0f, d22 = 0.0f, d23 = 0.0f, d35 = 0.0f, d55 = 0.0f;
-      if (DDP) {
-        const float fpp = polyder2(pr.c, pr.P, x);
-        d00 = Vs[4] * fpp * g_ddp;
-        d22 = -v * dt * (Vs[0] * ct + Vs[1] * st) * g_ddp;
-        d23 = dt * (Vs[1] * ct - Vs[0] * st) * g_ddp;
-        d35 = sign * dt * ce * Vs[4] * g_ddp;
-        d55 = -sign * dt * v * se * Vs[4] * g_ddp;
-      }
+        // (A' V A)[i][j] for live i, j (column 2 of va has no row 4)
+        auto atva = [&](int i, int j) -> float {
+          const float* y = va[j];
+          const bool h4 = j != 2;
+          switch (i) {
+            case 0: return h4 ? y[0] + a40 * y[4] : y[0];
+            case 1: return h4 ? y[1] - y[4] : y[1];
+            case 2: return a02 * y[0] + a12 * y[1] + y[2];
+            case 3: {
+              const float e = a03 * y[0] + a13 * y[1] + y[3];
+              if constexpr (BICYCLE)
+                return (h4 ? e + a43 * y[4] : e) + a23 * (y[2] + y[5]);
+              else
+                return h4 ? e + a43 * y[4] : e;
+            }
+            default: return h4 ? a45 * y[4] + y[5] : y[5];  // i == 5
+          }
+        };
 
-      // Qus = B' V A + l_us (column 4 zero; columns 6/7 rate coupling)
-      float qus0[8], qus1[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        qus0[j] = 0.0f;
-        qus1[j] = 0.0f;
-        if (j == 0 || j == 1 || j == 2 || j == 3 || j == 5) {
-          qus0[j] = b20 * (va[j][2] + va[j][5]) + va[j][6];
-          qus1[j] = dt * va[j][3] + va[j][7];
+        // exact second-order dynamics terms (gated per lane)
+        float d00 = 0.0f, d22 = 0.0f, d23 = 0.0f, d35 = 0.0f, d55 = 0.0f;
+        if (DDP) {
+          const float fpp = polyder2(pr.c, pr.P, x);
+          d00 = Vs[4] * fpp * g_ddp;
+          d22 = -v * dt * (Vs[0] * ct + Vs[1] * st) * g_ddp;
+          d23 = dt * (Vs[1] * ct - Vs[0] * st) * g_ddp;
+          d35 = sign * dt * ce * Vs[4] * g_ddp;
+          d55 = -sign * dt * v * se * Vs[4] * g_ddp;
         }
-      }
-      qus0[6] = -wdw2;
-      qus1[7] = -wda2;
-      // theta rows 2/5 under DDP: d2(v delta dt / lf) / dv d delta
-      if constexpr (DDP && BICYCLE)
-        qus0[3] = qus0[3] + (Vs[2] + Vs[5]) * (ex.invlf * dt) * g_ddp;
 
-      // Quu = B' V B + l_uu, symmetrized
-      float VB0[8], VB1[8];
-#pragma unroll
-      for (int i = 2; i < 8; ++i) {
-        if (i == 4) continue;
-        VB0[i] = b20 * (V[i][2] + V[i][5]) + V[i][6];
-        VB1[i] = dt * V[i][3] + V[i][7];
-      }
-      const float btvb00 = b20 * (VB0[2] + VB0[5]) + VB0[6];
-      const float btvb01 = b20 * (VB1[2] + VB1[5]) + VB1[6];
-      const float btvb10 = dt * VB0[3] + VB0[7];
-      const float btvb11 = dt * VB1[3] + VB1[7];
-      const float offd = 0.5f * (btvb01 + btvb10);
-      const float q00 = btvb00 + ww2 + wdw2;
-      const float q11 = btvb11 + wa2 + wda2;
-
-      float k0, k1, j00, j01, j10, j11;
-      boxqp(q00 + mu, offd, offd, q11 + mu, Qu0, Qu1, lb0 - ut0, lb1 - ut1,
-            ub0 - ut0, ub1 - ut1, k0, k1, j00, j01, j10, j11);
-      float K0[8], K1[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        K0[j] = -(j00 * qus0[j] + j01 * qus1[j]);
-        K1[j] = -(j10 * qus0[j] + j11 * qus1[j]);
-      }
-
-      const float quk0 = q00 * k0 + offd * k1;
-      const float quk1 = offd * k0 + q11 * k1;
-      const float ku0 = quk0 + Qu0;
-      const float ku1 = quk1 + Qu1;
-      // Vs_n = Qs + K'(Quu k + Qu) + Qus' k
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        Vs[i] = Qs[i] + (K0[i] * ku0 + K1[i] * ku1) +
-                (qus0[i] * k0 + qus1[i] * k1);
-      }
-
-      // Vss_n = Qss + K'Quu K + K'Qus + (K'Qus)': upper triangle, mirrored;
-      // row/column 4 stays diag(wc2) and is not stored
-      auto cross = [&](int i, int j) -> float {
-        if (j == 6) return K0[i] * qus0[6];
-        if (j == 7) return K1[i] * qus1[7];
-        return K0[i] * qus0[j] + K1[i] * qus1[j];
-      };
-      float Vn[8][8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        if (i == 4) continue;
-#pragma unroll
-        for (int j = i; j < 8; ++j) {
-          if (j == 4) continue;
-          const bool li = i != 6 && i != 7;
-          const bool lj = j != 6 && j != 7;
-          bool has_q = false;
-          float q = 0.0f;
-          if (li && lj) {
-            q = atva(i, j);
-            has_q = true;
-          }
-          if (i == j) {
-            if (i == 3) q = q + wv2;
-            if (i == 5) q = q + we2;
-            if (i == 6) { q = wdw2; has_q = true; }
-            if (i == 7) { q = wda2; has_q = true; }
-          }
-          if constexpr (BLOBS) {
-            if (i == 0 && j == 0) q = q + ohxx;
-            if (i == 0 && j == 1) q = q + ohxy;
-            if (i == 1 && j == 1) q = q + ohyy;
-          }
-          if (DDP) {
-            if (i == 0 && j == 0) q = q + d00;
-            if (i == 2 && j == 2) q = q + d22;
-            if (i == 2 && j == 3) q = q + d23;
-            if (i == 3 && j == 5) q = q + d35;
-            if (i == 5 && j == 5) q = q + d55;
-          }
-          const float ktk0 = K0[i] * q00 + K1[i] * offd;
-          const float ktk1 = K0[i] * offd + K1[i] * q11;
-          const float ktk = ktk0 * K0[j] + ktk1 * K1[j];
-          const float e = (has_q ? q + ktk : ktk) + cross(i, j) + cross(j, i);
-          Vn[i][j] = e;
-          Vn[j][i] = e;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        if (i == 4) continue;
+        // Qus = B' V A + l_us (column 4 zero; columns 6/7 rate coupling)
+        float qus0[8], qus1[8];
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          if (j == 4) continue;
-          V[i][j] = Vn[i][j];
+          qus0[j] = 0.0f;
+          qus1[j] = 0.0f;
+          if (j == 0 || j == 1 || j == 2 || j == 3 || j == 5) {
+            qus0[j] = b20 * (va[j][2] + va[j][5]) + va[j][6];
+            qus1[j] = dt * va[j][3] + va[j][7];
+          }
         }
+        qus0[6] = -wdw2;
+        qus1[7] = -wda2;
+        // theta rows 2/5 under DDP: d2(v delta dt / lf) / dv d delta
+        if constexpr (DDP && BICYCLE)
+          qus0[3] = qus0[3] + (Vs[2] + Vs[5]) * (ex.invlf * dt) * g_ddp;
+
+        // Quu = B' V B + l_uu, symmetrized
+        float VB0[8], VB1[8];
+#pragma unroll
+        for (int i = 2; i < 8; ++i) {
+          if (i == 4) continue;
+          VB0[i] = b20 * (V[i][2] + V[i][5]) + V[i][6];
+          VB1[i] = dt * V[i][3] + V[i][7];
+        }
+        const float btvb00 = b20 * (VB0[2] + VB0[5]) + VB0[6];
+        const float btvb01 = b20 * (VB1[2] + VB1[5]) + VB1[6];
+        const float btvb10 = dt * VB0[3] + VB0[7];
+        const float btvb11 = dt * VB1[3] + VB1[7];
+        const float offd = 0.5f * (btvb01 + btvb10);
+        const float q00 = btvb00 + ww2 + wdw2;
+        const float q11 = btvb11 + wa2 + wda2;
+
+        float k0, k1, j00, j01, j10, j11;
+        boxqp(q00 + mu, offd, offd, q11 + mu, Qu0, Qu1, lb0 - ut0, lb1 - ut1,
+              ub0 - ut0, ub1 - ut1, k0, k1, j00, j01, j10, j11);
+        float K0[8], K1[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          K0[j] = -(j00 * qus0[j] + j01 * qus1[j]);
+          K1[j] = -(j10 * qus0[j] + j11 * qus1[j]);
+        }
+
+        const float quk0 = q00 * k0 + offd * k1;
+        const float quk1 = offd * k0 + q11 * k1;
+        const float ku0 = quk0 + Qu0;
+        const float ku1 = quk1 + Qu1;
+        // Vs_n = Qs + K'(Quu k + Qu) + Qus' k
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          Vs[i] = Qs[i] + (K0[i] * ku0 + K1[i] * ku1) +
+                  (qus0[i] * k0 + qus1[i] * k1);
+        }
+
+        // Vss_n = Qss + K'Quu K + K'Qus + (K'Qus)': upper triangle, mirrored;
+        // row/column 4 stays diag(wc2) and is not stored
+        auto cross = [&](int i, int j) -> float {
+          if (j == 6) return K0[i] * qus0[6];
+          if (j == 7) return K1[i] * qus1[7];
+          return K0[i] * qus0[j] + K1[i] * qus1[j];
+        };
+        float Vn[8][8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (i == 4) continue;
+#pragma unroll
+          for (int j = i; j < 8; ++j) {
+            if (j == 4) continue;
+            const bool li = i != 6 && i != 7;
+            const bool lj = j != 6 && j != 7;
+            bool has_q = false;
+            float q = 0.0f;
+            if (li && lj) {
+              q = atva(i, j);
+              has_q = true;
+            }
+            if (i == j) {
+              if (i == 3) q = q + wv2;
+              if (i == 5) q = q + we2;
+              if (i == 6) { q = wdw2; has_q = true; }
+              if (i == 7) { q = wda2; has_q = true; }
+            }
+            if constexpr (BLOBS) {
+              if (i == 0 && j == 0) q = q + ohxx;
+              if (i == 0 && j == 1) q = q + ohxy;
+              if (i == 1 && j == 1) q = q + ohyy;
+            }
+            if (DDP) {
+              if (i == 0 && j == 0) q = q + d00;
+              if (i == 2 && j == 2) q = q + d22;
+              if (i == 2 && j == 3) q = q + d23;
+              if (i == 3 && j == 5) q = q + d35;
+              if (i == 5 && j == 5) q = q + d55;
+            }
+            const float ktk0 = K0[i] * q00 + K1[i] * offd;
+            const float ktk1 = K0[i] * offd + K1[i] * q11;
+            const float ktk = ktk0 * K0[j] + ktk1 * K1[j];
+            const float e = (has_q ? q + ktk : ktk) + cross(i, j) + cross(j, i);
+            Vn[i][j] = e;
+            Vn[j][i] = e;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (i == 4) continue;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (j == 4) continue;
+            V[i][j] = Vn[i][j];
+          }
+        }
+
+        // k (2) and K without its zero column 4 (2 x 7)
+        L.k[t * 2 * B] = k0;
+        L.k[(t * 2 + 1) * B] = k1;
+        {
+          float* Kt = L.K + t * 14 * B;
+          float kk = k0 + k1;
+#pragma unroll
+          for (int j = 0, jj = 0; j < 8; ++j) {
+            if (j == 4) continue;
+            Kt[jj * B] = K0[j];
+            Kt[(7 + jj) * B] = K1[j];
+            kk = kk + (K0[j] + K1[j]);
+            ++jj;
+          }
+          chk = chk + kk;
+        }
+        dv1 = dv1 + k0 * Qu0 + k1 * Qu1;
+        dv2 = dv2 + 0.5f * (k0 * quk0 + k1 * quk1);
+        // pg on the weight-scale-normalized gradient
+        const float pg_t =
+            maxf(fabsf(ut0 - clampf(ut0 - Qu0 * inv_wscl, lb0, ub0)),
+                 fabsf(ut1 - clampf(ut1 - Qu1 * inv_wscl, lb1, ub1)));
+        pg = maxf(pg, pg_t);
       }
 
-      // k (2) and K without its zero column 4 (2 x 7)
-      L.k[t * 2 * B] = k0;
-      L.k[(t * 2 + 1) * B] = k1;
-      {
-        float* Kt = L.K + t * 14 * B;
-        float kk = k0 + k1;
-#pragma unroll
-        for (int j = 0, jj = 0; j < 8; ++j) {
-          if (j == 4) continue;
-          Kt[jj * B] = K0[j];
-          Kt[(7 + jj) * B] = K1[j];
-          kk = kk + (K0[j] + K1[j]);
-          ++jj;
-        }
-        chk = chk + kk;
-      }
-      dv1 = dv1 + k0 * Qu0 + k1 * Qu1;
-      dv2 = dv2 + 0.5f * (k0 * quk0 + k1 * quk1);
-      // pg on the weight-scale-normalized gradient
-      const float pg_t =
-          maxf(fabsf(ut0 - clampf(ut0 - Qu0 * inv_wscl, lb0, ub0)),
-               fabsf(ut1 - clampf(ut1 - Qu1 * inv_wscl, lb1, ub1)));
-      pg = maxf(pg, pg_t);
-    }
+      const float pred_decrease = -(dv1 + dv2);
+      // relative-cost guards tol*(s + |J|)
+      const float tiny_model =
+          pred_decrease <= a.tol_cost_eff * (wscl + fabsf(cost)) ? 1.0f : 0.0f;
 
-    const float pred_decrease = -(dv1 + dv2);
-    // relative-cost guards tol*(s + |J|)
-    const float tiny_model =
-        pred_decrease <= a.tol_cost_eff * (wscl + fabsf(cost)) ? 1.0f : 0.0f;
-
-    // ---- multi-alpha line search ----
-    float S[NLS][8], accs[NLS], cts[NLS], sts[NLS];
-#pragma unroll
-    for (int al = 0; al < NLS; ++al) {
-#pragma unroll
-      for (int r = 0; r < 8; ++r) S[al][r] = s0[r];
-      accs[al] = 0.0f;
-      cts[al] = ct00;
-      sts[al] = st00;
-    }
-    L.fetch_ls(0);
-    copy_commit();
-    if (T >= 2) L.fetch_ls(1);
-    copy_commit();
-    // the base trajectory's previous control (rows 6-7 of s_b)
-    float up0 = 0.0f, up1 = 0.0f;
-    for (int t = 0; t < T; ++t) {
-      // knot t+2 goes out; knot t has arrived
-      if (t + 2 < T) L.fetch_ls(t + 2);
-      copy_commit();
-      copy_wait<2>();
-      const float* q = L.stage(t);
-      float s_b[8], Km0[8], Km1[8];
-#pragma unroll
-      for (int r = 0; r < 6; ++r) s_b[r] = q[r * kTile];
-      s_b[6] = up0;
-      s_b[7] = up1;
-      const float ub_0 = q[6 * kTile], ub_1 = q[7 * kTile];
-      const float k0 = q[8 * kTile], k1 = q[9 * kTile];
-#pragma unroll
-      for (int j = 0, jj = 0; j < 8; ++j) {
-        if (j == 4) {
-          Km0[j] = Km1[j] = 0.0f;
-          continue;
-        }
-        Km0[j] = q[(10 + jj) * kTile];
-        Km1[j] = q[(17 + jj) * kTile];
-        ++jj;
-      }
-      up0 = ub_0;
-      up1 = ub_1;
-      const float rate = t >= 1 ? 1.0f : 0.0f;
-      if constexpr (SETP) ex.ref(t, pr.rc, pr.re, pr.rv);
+      // ---- multi-alpha line search ----
+      float S[NLS][8], accs[NLS], cts[NLS], sts[NLS];
 #pragma unroll
       for (int al = 0; al < NLS; ++al) {
-        const float alpha = 1.0f / (float)(1 << al);
-        float ds[8];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) ds[j] = S[al][j] - s_b[j];
-        const float u0 = clampf(feedback(ub_0, alpha, k0, Km0, ds), lb0, ub0);
-        const float u1 = clampf(feedback(ub_1, alpha, k1, Km1, ds), lb1, ub1);
-        // the candidate's controls, for the winner's re-roll
-        L.cu[(al * T + t) * 2 * B] = u0;
-        L.cu[((al * T + t) * 2 + 1) * B] = u1;
-        if constexpr (BLOBS)
-          accs[al] = accs[al] + (pr.stage_cost(S[al], u0, u1, rate) +
-                                 ex.obs_val(S[al][0], S[al][1]));
-        else
-          accs[al] = accs[al] + pr.stage_cost(S[al], u0, u1, rate);
-        const float se = trig.se(cts[al], sts[al], S[al][5]);
-        float sn[8];
-        if constexpr (BICYCLE) {
-          ex.bicycle_step(pr, S[al], u0, u1, cts[al], sts[al], se, sn);
-          trig.step(cts[al], sts[al], S[al][3] * ex.invlf * u0 * dt, sn[2]);
-        } else {
-          pr.dyn_step(S[al], u0, u1, cts[al], sts[al], se, sn);
-          trig.step(cts[al], sts[al], u0 * dt, sn[2]);
-        }
-#pragma unroll
-        for (int r = 0; r < 8; ++r) S[al][r] = sn[r];
+        for (int r = 0; r < 8; ++r) S[al][r] = s0[r];
+        accs[al] = 0.0f;
+        cts[al] = ct00;
+        sts[al] = st00;
       }
-    }
-    // the first (largest) alpha that lowers the cost wins
-    float picked = 0.0f, alpha_sel = 0.0f, cost_sel = cost;
-    int win = 0;
-    if constexpr (SETP) ex.ref(T, pr.rc, pr.re, pr.rv);
-#pragma unroll
-    for (int al = 0; al < NLS; ++al) {
-      float cost_a;
-      if constexpr (BLOBS)
-        cost_a = accs[al] + (pr.term_cost(S[al]) +
-                             ex.obs_val(S[al][0], S[al][1]));
-      else
-        cost_a = accs[al] + pr.term_cost(S[al]);
-      if (a.diag != nullptr) a.diag[al * B + lane_i] = cost_a;
-      const float improved = cost_a < cost ? 1.0f : 0.0f;
-      const float take = improved * (1.0f - minf(picked, 1.0f));
-      picked = picked + take;
-      alpha_sel = alpha_sel + take * (1.0f / (float)(1 << al));
-      cost_sel = take > 0.5f ? cost_a : cost_sel;
-      win = take > 0.5f ? al : win;
-    }
-    if (a.diag != nullptr) {
-      a.diag[NLS * B + lane_i] = cost;
-      a.diag[(NLS + 1) * B + lane_i] = alpha_sel;
-    }
-    const float accepted = minf(picked, 1.0f);
-    const float upd = accepted * act;
-
-    // ---- the winner's re-roll. Where every row the backward read or wrote
-    // is finite: on an accepted step the recorded controls replayed from
-    // s0, written in place; a rejected step keeps its trajectory and skips
-    // this. On any other lane the TPU kernel's re-roll, recomputed and
-    // blended (see reroll_blend) ----
-    const bool exact = fabsf(chk) <= kFloatMax;
-    if (!exact) {
-      reroll_blend<BICYCLE>(L, pr, ex, trig, s0, ct00, st00, alpha_sel, upd,
-                            lb0, lb1, ub0, ub1);
-    } else if (upd > 0.5f) {
-      const float* cw = L.cu + win * T * 2 * B;
-      float sa[8];
-#pragma unroll
-      for (int r = 0; r < 8; ++r) sa[r] = s0[r];
-      float ct = ct00, st = st00;
-      float u0 = cw[0], u1 = cw[B];
+      L.fetch_ls(0);
+      copy_commit();
+      if (T >= 2) L.fetch_ls(1);
+      copy_commit();
+      // the base trajectory's previous control (rows 6-7 of s_b)
+      float up0 = 0.0f, up1 = 0.0f;
       for (int t = 0; t < T; ++t) {
-        // the next knot's controls load while this knot computes
-        const int tn = t + 1 < T ? t + 1 : t;
-        const float u0n = cw[tn * 2 * B], u1n = cw[(tn * 2 + 1) * B];
-        const float se = trig.se(ct, st, sa[5]);
-        float sn[8];
-        if constexpr (BICYCLE)
-          ex.bicycle_step(pr, sa, u0, u1, ct, st, se, sn);
-        else
-          pr.dyn_step(sa, u0, u1, ct, st, se, sn);
-        L.put(t, u0, u1, ct, st, se, trig.ce(ct, st, sa[5]), sn);
-        if constexpr (BICYCLE)
-          trig.step(ct, st, sa[3] * ex.invlf * u0 * dt, sn[2]);
-        else
-          trig.step(ct, st, u0 * dt, sn[2]);
+        // knot t+2 goes out; knot t has arrived
+        if (t + 2 < T) L.fetch_ls(t + 2);
+        copy_commit();
+        copy_wait<2>();
+        const float* q = L.stage(t);
+        float s_b[8], Km0[8], Km1[8];
 #pragma unroll
-        for (int r = 0; r < 8; ++r) sa[r] = sn[r];
-        u0 = u0n;
-        u1 = u1n;
+        for (int r = 0; r < 6; ++r) s_b[r] = q[r * kTile];
+        s_b[6] = up0;
+        s_b[7] = up1;
+        const float ub_0 = q[6 * kTile], ub_1 = q[7 * kTile];
+        const float k0 = q[8 * kTile], k1 = q[9 * kTile];
+#pragma unroll
+        for (int j = 0, jj = 0; j < 8; ++j) {
+          if (j == 4) {
+            Km0[j] = Km1[j] = 0.0f;
+            continue;
+          }
+          Km0[j] = q[(10 + jj) * kTile];
+          Km1[j] = q[(17 + jj) * kTile];
+          ++jj;
+        }
+        up0 = ub_0;
+        up1 = ub_1;
+        const float rate = t >= 1 ? 1.0f : 0.0f;
+        if constexpr (SETP) ex.ref(t, pr.rc, pr.re, pr.rv);
+#pragma unroll
+        for (int al = 0; al < NLS; ++al) {
+          const float alpha = 1.0f / (float)(1 << al);
+          float ds[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) ds[j] = S[al][j] - s_b[j];
+          const float u0 = clampf(feedback(ub_0, alpha, k0, Km0, ds), lb0, ub0);
+          const float u1 = clampf(feedback(ub_1, alpha, k1, Km1, ds), lb1, ub1);
+          // the candidate's controls, for the winner's re-roll
+          L.cu[(al * T + t) * 2 * B] = u0;
+          L.cu[((al * T + t) * 2 + 1) * B] = u1;
+          if constexpr (BLOBS)
+            accs[al] = accs[al] + (pr.stage_cost(S[al], u0, u1, rate) +
+                                   ex.obs_val(S[al][0], S[al][1]));
+          else
+            accs[al] = accs[al] + pr.stage_cost(S[al], u0, u1, rate);
+          const float se = trig.se(cts[al], sts[al], S[al][5]);
+          float sn[8];
+          if constexpr (BICYCLE) {
+            ex.bicycle_step(pr, S[al], u0, u1, cts[al], sts[al], se, sn);
+            trig.step(cts[al], sts[al], S[al][3] * ex.invlf * u0 * dt, sn[2]);
+          } else {
+            pr.dyn_step(S[al], u0, u1, cts[al], sts[al], se, sn);
+            trig.step(cts[al], sts[al], u0 * dt, sn[2]);
+          }
+#pragma unroll
+          for (int r = 0; r < 8; ++r) S[al][r] = sn[r];
+        }
       }
-    }
-    const float cost2 = upd > 0.5f ? cost_sel : cost;
+      // the first (largest) alpha that lowers the cost wins
+      float picked = 0.0f, alpha_sel = 0.0f, cost_sel = cost;
+      int win = 0;
+      if constexpr (SETP) ex.ref(T, pr.rc, pr.re, pr.rv);
+#pragma unroll
+      for (int al = 0; al < NLS; ++al) {
+        float cost_a;
+        if constexpr (BLOBS)
+          cost_a = accs[al] + (pr.term_cost(S[al]) +
+                               ex.obs_val(S[al][0], S[al][1]));
+        else
+          cost_a = accs[al] + pr.term_cost(S[al]);
+        if (a.diag != nullptr && act > 0.5f) a.diag[al * B + lane_i] = cost_a;
+        const float improved = cost_a < cost ? 1.0f : 0.0f;
+        const float take = improved * (1.0f - minf(picked, 1.0f));
+        picked = picked + take;
+        alpha_sel = alpha_sel + take * (1.0f / (float)(1 << al));
+        cost_sel = take > 0.5f ? cost_a : cost_sel;
+        win = take > 0.5f ? al : win;
+      }
+      if (a.diag != nullptr && act > 0.5f) {
+        a.diag[NLS * B + lane_i] = cost;
+        a.diag[(NLS + 1) * B + lane_i] = alpha_sel;
+      }
+      const float accepted = minf(picked, 1.0f);
+      const float upd = accepted * act;
 
-    // ---- per-lane bookkeeping ----
-    const bool on = act > 0.5f;
-    const float mu2 = upd > 0.5f ? maxf(mu / a.mu_factor, mu_lo)
-                      : on       ? minf(mu * a.mu_factor, mu_hi)
-                                 : mu;
-    const float small_step =
-        accepted *
-        (fabsf(cost - cost2) <= a.tol_cost_eff * (wscl + fabsf(cost)) ? 1.0f
-                                                                      : 0.0f);
-    const float n_small2 =
-        on ? (small_step > 0.5f ? n_small + 1.0f : 0.0f) : n_small;
-    // a tiny predicted decrease certifies only with the trust region open;
-    // under inflated mu it is a stall only if the step was also rejected
-    const float mu_open = mu <= mu_lo * a.mu_factor ? 1.0f : 0.0f;
-    const float converged_now =
-        maxf(maxf(pg < a.tol_grad ? 1.0f : 0.0f, n_small2 >= 2.0f ? 1.0f : 0.0f),
-             tiny_model * mu_open);
-    const float stalled =
-        maxf((1.0f - accepted) * (mu2 >= mu_hi ? 1.0f : 0.0f),
-             tiny_model * (1.0f - mu_open) * (1.0f - accepted));
-    done = on ? maxf(converged_now, stalled) : done;
-    conv = on ? converged_now : conv;
-    gnorm = on ? pg : gnorm;
-    iters = iters + act;
-    cost = cost2;
-    mu = mu2;
-    n_small = n_small2;
+      // ---- the winner's re-roll. Where every row the backward read or wrote
+      // is finite: on an accepted step the recorded controls replayed from
+      // s0, written in place; a rejected step keeps its trajectory and skips
+      // this. On any other lane the TPU kernel's re-roll, recomputed and
+      // blended (see reroll_blend) ----
+      const bool exact = fabsf(chk) <= kFloatMax;
+      // the sum of the trajectory the re-roll leaves (0: the one the
+      // backward read, whose rows chk found finite)
+      float trail = 0.0f;
+      if (!exact) {
+        trail = reroll_blend<BICYCLE>(L, pr, ex, trig, s0, ct00, st00,
+                                      alpha_sel, upd, lb0, lb1, ub0, ub1);
+      } else if (upd > 0.5f) {
+        trail = row_sum(s0, 0.0f, 0.0f);
+        const float* cw = L.cu + win * T * 2 * B;
+        float sa[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) sa[r] = s0[r];
+        float ct = ct00, st = st00;
+        float u0 = cw[0], u1 = cw[B];
+        for (int t = 0; t < T; ++t) {
+          // the next knot's controls load while this knot computes
+          const int tn = t + 1 < T ? t + 1 : t;
+          const float u0n = cw[tn * 2 * B], u1n = cw[(tn * 2 + 1) * B];
+          const float se = trig.se(ct, st, sa[5]);
+          float sn[8];
+          if constexpr (BICYCLE)
+            ex.bicycle_step(pr, sa, u0, u1, ct, st, se, sn);
+          else
+            pr.dyn_step(sa, u0, u1, ct, st, se, sn);
+          L.put(t, u0, u1, ct, st, se, trig.ce(ct, st, sa[5]), sn);
+          trail = trail + row_sum(sn, u0, u1);
+          if constexpr (BICYCLE)
+            trig.step(ct, st, sa[3] * ex.invlf * u0 * dt, sn[2]);
+          else
+            trig.step(ct, st, u0 * dt, sn[2]);
+#pragma unroll
+          for (int r = 0; r < 8; ++r) sa[r] = sn[r];
+          u0 = u0n;
+          u1 = u1n;
+        }
+      }
+      dirt = chk + trail;
+      const float cost2 = upd > 0.5f ? cost_sel : cost;
+
+      // ---- per-lane bookkeeping ----
+      const bool on = act > 0.5f;
+      const float mu2 = upd > 0.5f ? maxf(mu / a.mu_factor, mu_lo)
+                        : on       ? minf(mu * a.mu_factor, mu_hi)
+                                   : mu;
+      const float small_step =
+          accepted *
+          (fabsf(cost - cost2) <= a.tol_cost_eff * (wscl + fabsf(cost)) ? 1.0f
+                                                                        : 0.0f);
+      const float n_small2 =
+          on ? (small_step > 0.5f ? n_small + 1.0f : 0.0f) : n_small;
+      // a tiny predicted decrease certifies only with the trust region open;
+      // under inflated mu it is a stall only if the step was also rejected
+      const float mu_open = mu <= mu_lo * a.mu_factor ? 1.0f : 0.0f;
+      const float converged_now =
+          maxf(maxf(pg < a.tol_grad ? 1.0f : 0.0f, n_small2 >= 2.0f ? 1.0f : 0.0f),
+               tiny_model * mu_open);
+      const float stalled =
+          maxf((1.0f - accepted) * (mu2 >= mu_hi ? 1.0f : 0.0f),
+               tiny_model * (1.0f - mu_open) * (1.0f - accepted));
+      done = on ? maxf(converged_now, stalled) : done;
+      conv = on ? converged_now : conv;
+      gnorm = on ? pg : gnorm;
+      iters = iters + act;
+      cost = cost2;
+      mu = mu2;
+      n_small = n_small2;
+    }
   }
 
   // ---------------- outputs --------------------------------------------

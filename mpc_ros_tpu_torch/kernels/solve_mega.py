@@ -238,6 +238,28 @@ def replay_check(s=None, u=None, gains=None):
     return acc if u is None else acc + (u[0] + u[1])
 
 
+def _trajectory_finite(traj_s, traj_u):
+    """(B,) True where every state row 0-5 and control of a trajectory
+    buffer is finite."""
+    rows = [r for knot in traj_s for r in knot[:6]]
+    rows += [u for knot in traj_u for u in knot]
+    return torch.isfinite(torch.stack(rows)).all(dim=0)
+
+
+def _tile_runs(done, kn):
+    """(B,) True where the lane's tile of TILE lanes (the kernel's block)
+    still runs: under done_frac < 1 while fewer than n_done_needed of its
+    lanes are done, else while one of them is not done."""
+    B = done.shape[0]
+    pad = -B % TILE
+    d = torch.cat([done, done.new_ones(pad)]).reshape(-1, TILE)
+    if kn.tile_exit:
+        runs = d.sum(dim=1) < kn.n_done_needed - 0.5
+    else:
+        runs = (d < 0.5).any(dim=1)
+    return runs.repeat_interleave(TILE)[:B]
+
+
 def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None, blobs=None,
                      refs=None, diag=None, design=False):
     """The plain PyTorch version of the kernel: `_kernel` of
@@ -268,7 +290,12 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None, blobs=None,
     rows are all finite (`replay_check`) takes the winner's rollout on an
     accepted step and keeps its trajectory on a rejected one, with no
     blend; any other running lane blends as below; a done lane is left as
-    it is."""
+    it is unless its trajectory or its last backward's rows were not
+    finite (or it was resumed done and has run no backward): such a lane
+    blends with act = 0 while its tile of TILE lanes runs (the kernel's
+    block: under done_frac < 1 until the tile stops, else while one of its
+    lanes is not done), where this version blends every lane while any
+    lane of the batch runs."""
     dtype = zT.dtype
     kn = _knobs_for(cfg, dtype, blobs, refs)
     T = kn.T
@@ -472,6 +499,10 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None, blobs=None,
         gnorm = torch.full((B,), float("inf"), dtype=dtype, device=dev)
     else:
         done, conv, mu, gnorm = (r.to(dtype) for r in resume)
+    if design:
+        # the kernel's `dirt`: False where the lane's trajectory or its
+        # last backward's rows were not finite, or it was resumed done
+        clean = _trajectory_finite(traj_s[0], traj_u[0]) & (done < 0.5)
     cur = 0
     it = 0
     lss_idx = (None, None, None, wv2, wc2, we2)
@@ -747,10 +778,12 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None, blobs=None,
         if design:
             # the kernel's paths: the winner's replay on accepted lanes and
             # no change on rejected ones where every backward row is
-            # finite, the blend on the other running lanes, nothing on
-            # done lanes
+            # finite, the blend on the other running lanes and on the done
+            # lanes whose `dirt` is not finite while their tile runs,
+            # nothing on the other done lanes
             on_ = act > 0.5
-            blend = on_ & ~torch.isfinite(chk)
+            runs = on_ | ((done > 0.5) & ~clean & _tile_runs(done, kn))
+            blend = runs & ~torch.isfinite(chk)
             take_new = on_ & ~blend & (upd > 0.5)
 
             def mix(new, old, blended):
@@ -793,6 +826,9 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None, blobs=None,
             ct, st = step_trig(ct, st, dth_of(s_a[3], u0_), s_n)
             s_a = s_n
         cost2 = torch.where(upd > 0.5, cost_sel, cost)
+        if design:
+            clean = torch.where(runs, torch.isfinite(chk) & _trajectory_finite(
+                traj_s[nxt], traj_u[nxt]), clean)
 
         # ---- per-lane bookkeeping ----
         on = act > 0.5

@@ -1,3 +1,5 @@
-from .poly import polyder_eval, polyeval
+from . import frames, poly
+from .poly import polyder_eval, polyeval, polyfit, vandermonde
 
-__all__ = ["polyder_eval", "polyeval"]
+__all__ = ["frames", "poly", "polyder_eval", "polyeval", "polyfit",
+           "vandermonde"]

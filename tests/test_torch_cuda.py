@@ -1,8 +1,10 @@
 """Tests that need an NVIDIA GPU (marker `cuda`; they skip without one):
 the three kernels against their plain versions on the card (the solve
 kernel also with resume state and the per-block exit), the main path, the
-long-horizon compact schedule and the two-kernel route launching them, and
-the XLA lane path taking what the kernels do not. Run on the card with
+long-horizon compact schedule and the two-kernel route launching them, the
+XLA lane path taking what the kernels do not, and the single-robot closed
+loop (the planner and the trajectory tracker on the three courses). Run on
+the card with
 `python -m pytest --noconftest tests/test_torch_cuda.py` (tests/conftest.py
 configures JAX, which the card's machine need not have).
 """
@@ -252,6 +254,32 @@ def test_nonfinite_lanes_match_plain_solve_variants(dev, variant):
         cfg = SolverConfig(n_steps=48, max_sqp_iters=22, tol_grad=1e-4,
                            done_frac=0.97)
         _nonfinite_solve(dev, cfg, with_extras=True)
+
+
+@pytest.mark.parametrize("done_frac", [1.0, 0.97], ids=["per_lane", "tile"])
+@pytest.mark.parametrize("model", ["diff_drive", "bicycle"])
+def test_lanes_done_before_the_others_match_plain(dev, done_frac, model):
+    """One block (B=128, the plain version's batch): lanes planted with
+    NaN, inf and the overflowing coefficient resumed done beside running
+    ones, which the plain version blends with act = 0 while the others
+    run; the kernel must give the same outputs."""
+    cfg = dataclasses.replace(PROD, done_frac=done_frac, model=model)
+    B = solve_mega.TILE
+    z0s, coeffs = _scen(dev, B, seed=12)
+    ins = lane_inputs(z0s, coeffs, MPCParams().astype(torch.float32, dev),
+                      cfg)
+    lanes = [5, 40, 77, 100]
+    planted = plant_nonfinite({"z": ins[0], "coeffs": ins[1]}, lanes)
+    bad = (planted["z"], planted["coeffs"]) + tuple(ins[2:])
+    done = torch.zeros(B, device=dev)
+    done[lanes + [9, 60]] = 1.0
+    resume = (done, torch.zeros_like(done), torch.full_like(done, 1e-6),
+              torch.full_like(done, float("inf")))
+    k = solve_mega.solve_mega_cuda(*bad, cfg, resume=resume)
+    p = solve_mega.solve_mega_plain(*bad, cfg, resume=resume)
+    clean = solve_mega.solve_mega_cuda(*ins, cfg, resume=resume)
+    rec = nonfinite_agreement(k, p, clean, lanes, 1e-3)
+    assert rec["ok"] and rec["planted_lanes_with_nan"] >= 3, rec
 
 
 def _nonfinite_solve(dev, cfg, with_extras=False):
@@ -608,3 +636,64 @@ def test_generic_engine_stays_on_the_card(dev, route):
                      res.n_iters.cpu(), ref.us.cpu(), ref.cost.cpu(),
                      ref.converged.cpu(), ref.n_iters.cpu(), PROD.n_steps)
     assert g["ok"], g
+
+
+# The single-robot closed loop on the card (float32, the planner's and the
+# tracker's configurations of tests/test_closed_loop.py and
+# tests/test_trajectory_tracking.py) within the JAX envelopes.
+LOOP = dict(dt=0.1, ref_vel=0.5, max_angvel=1.5, w_cte=300.0,
+            w_angvel_d=10.0, w_accel_d=10.0)
+
+
+@pytest.mark.parametrize("shape,max_cycles,mean_bar,max_bar", [
+    ("infinity", 1200, 0.08, 0.25),
+    ("epitrochoid", 2500, 0.10, 0.40),
+    ("square", 1500, 0.08, 0.50),
+])
+def test_closed_loop_courses_on_the_card(dev, shape, max_cycles, mean_bar,
+                                         max_bar):
+    import numpy as np
+
+    from mpc_ros_tpu_torch.config import PlannerConfig
+    from mpc_ros_tpu_torch.planner import MPCPlanner
+    from mpc_ros_tpu_torch.sim import get_shape, run_closed_loop
+
+    plan = get_shape(shape)
+    planner = MPCPlanner(MPCParams(**LOOP), SolverConfig(n_steps=20),
+                         PlannerConfig(local_plan_length=2.5), device=dev)
+    before = solve_mega.launches
+    res = run_closed_loop(planner, plan, max_cycles=max_cycles)
+    assert res.reached, f"{shape}: goal not reached in {max_cycles} cycles"
+    d = np.array([np.min(np.hypot(plan[:, 0] - q[0], plan[:, 1] - q[1]))
+                  for q in res.poses])
+    assert d.mean() < mean_bar and d.max() < max_bar, (d.mean(), d.max())
+    assert np.all(np.isfinite(res.records))
+    assert planner.tracker._warm_dev.is_cuda
+    assert solve_mega.launches == before
+
+
+@pytest.mark.parametrize("shape,speed,mean_bar,max_bar", [
+    ("infinity", 0.4, 0.25, 0.55),
+    ("epitrochoid", 0.35, 0.25, 0.60),
+    ("square", 0.35, 0.30, 0.80),
+])
+def test_timed_courses_on_the_card(dev, shape, speed, mean_bar, max_bar):
+    import numpy as np
+
+    from mpc_ros_tpu_torch.config import PlannerConfig
+    from mpc_ros_tpu_torch.planner import TimedTrajectory, TrajectoryTracker
+    from mpc_ros_tpu_torch.sim import get_shape
+    from mpc_ros_tpu_torch.sim.simulator import run_trajectory_tracking
+
+    traj = TimedTrajectory.from_path(get_shape(shape), speed)
+    tracker = TrajectoryTracker(
+        MPCParams(**{k: v for k, v in LOOP.items() if k != "ref_vel"}),
+        SolverConfig(n_steps=20), PlannerConfig(local_plan_length=2.5),
+        device=dev)
+    res = run_trajectory_tracking(tracker, traj, max_cycles=4000)
+    assert res.reached, f"{shape}: schedule end not reached"
+    d = res.dist_to_ref
+    assert d.mean() < mean_bar and d.max() < max_bar, (d.mean(), d.max())
+    assert res.course_time_s < 1.15 * traj.duration + 2.0
+    assert np.all(np.isfinite(res.records))
+    assert tracker._warm_dev.is_cuda

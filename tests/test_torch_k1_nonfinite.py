@@ -17,17 +17,21 @@ float64, for the diff drive (fast and exact trig), the bicycle, blobs and
 setpoint profiles, and at a cap where the planted lanes stall (mu at its
 ceiling after 14-15 rejected steps).
 
-Not covered: a lane that is done while others run. The kernel leaves it
-as it is (its thread has left the loop); the plain version, like the TPU
-kernel within a tile, goes on blending it, which changes it only where
-its recomputed rollout is not finite (ROADMAP Queue 3). The planted lanes
-here finish last.
+A lane that is done while others run: the plain version, like the TPU
+kernel within a tile, goes on blending it with act = 0, which changes it
+where its re-roll is not finite. The kernel does the same for a done lane
+whose trajectory or last backward rows were not finite (or that was
+resumed done) while its block runs; at B = 128 the block and the plain
+version's batch are the same lanes, so the design must equal the plain
+version there with lanes resumed done beside running ones.
 """
 
 import dataclasses
 
 import pytest
 import torch
+
+import test_torch_reroll
 
 from mpc_ros_tpu_torch.kernels import solve_mega
 from mpc_ros_tpu_torch.testing import (plant_nonfinite, torch_threads)
@@ -99,3 +103,38 @@ def test_replay_check_flags_exactly_the_nonfinite_rows():
         gains=(k, K))
     assert chk.isfinite().tolist() == [True, False, False, False, True,
                                        True, True, True]
+
+
+@pytest.mark.parametrize("done_frac", [1.0, 0.97], ids=["per_lane", "tile"])
+@pytest.mark.parametrize("case", ["diff_drive", "bicycle"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_design_equals_plain_on_lanes_done_before_the_others(
+        case, dtype, done_frac, monkeypatch):
+    """B = 128, one block: lanes planted with NaN, inf and the overflowing
+    coefficient are resumed done (and two clean lanes with them) while the
+    others run. The plain version blends the planted ones into NaN (the
+    overflowing coefficient's lane from a finite trajectory, through its
+    backward's gains); the design must give every output as it does."""
+    monkeypatch.setattr(test_torch_reroll, "B", solve_mega.TILE)
+    Bt = solve_mega.TILE
+    ins, cfg, blobs, refs = test_torch_reroll._case(case, dtype)
+    cfg = dataclasses.replace(cfg, done_frac=done_frac)
+    lanes = [5, 40, 77, 100]
+    planted = plant_nonfinite({"z": ins[0], "coeffs": ins[1]}, lanes)
+    bad = (planted["z"], planted["coeffs"]) + ins[2:]
+    done = torch.zeros(Bt, dtype=dtype)
+    done[lanes + [9, 60]] = 1.0
+    resume = (done, torch.zeros(Bt, dtype=dtype),
+              torch.full((Bt,), 1e-6, dtype=dtype),
+              torch.full((Bt,), float("inf"), dtype=dtype))
+    plain = solve_mega.solve_mega_plain(*bad, cfg, resume=resume)
+    design = solve_mega.solve_mega_plain(*bad, cfg, resume=resume,
+                                         design=True)
+    for a, b in zip(design, plain):
+        assert _equal(a, b)
+    # the blend reached the planted lanes; the others ran and stayed finite
+    assert bool(plain[0][..., [5, 40, 100]].isnan().any(dim=0).all())
+    assert int(plain[4].max()) >= 2
+    others = [i for i in range(Bt) if i not in lanes]
+    assert bool(plain[0][..., others].isfinite().all())

@@ -34,7 +34,11 @@ def test_no_jax_imports():
                 "solver/batch_lane.py", "engine/presort.py",
                 "engine/sweep.py", "solver/ilqr.py", "solver/boxqp.py",
                 "engine/batch.py", "models/base.py", "models/diff_drive.py",
-                "models/bicycle.py"):
+                "models/bicycle.py", "config.py", "ops/poly.py",
+                "ops/frames.py", "planner/plan_utils.py", "planner/fsm.py",
+                "planner/tracking.py", "planner/planner.py",
+                "obs/metrics.py", "sim/shapes.py", "sim/simulator.py",
+                "sim/logger.py", "planner/trajectory.py", "sim/run.py"):
         assert f"mpc_ros_tpu_torch/{mod}" in names, mod
     bad = {}
     for path in FILES:

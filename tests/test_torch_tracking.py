@@ -1,0 +1,166 @@
+"""The port's `TrackingController.compute` against the JAX package's on the
+same inputs, in float64, over 30 cycles of the infinity course (cold on
+cycle 1, warm-started from the device carry after): the error state, the
+fitted coefficients, the controls and the cost within 1e-8 on cycle 1 and
+1e-6 on every cycle, the commands likewise; with delay_mode on and off,
+the reference's unwrapped heading error (`wrap_etheta=False`), the
+curvature cap, world-frame blobs moved into the robot frame each cycle,
+and the bicycle.
+
+Both controllers see the same inputs every cycle: the pose sequence comes
+from a plant driven by the JAX controller, so only the controllers'
+own cross-cycle state (w, throttle, the warm start) carries over. The
+JAX controller fits the path with its native C++ core when that builds;
+the port has the numpy fit only (ROADMAP Queue 1 item 8), so the JAX
+instance's `_native_prep` is set False after construction (an attribute
+of the instance; no JAX file changes), and one test leaves it on and
+bounds the difference.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mpc_ros_tpu.config import MPCParams as JMPCParams
+from mpc_ros_tpu.config import PlannerConfig as JPlannerConfig
+from mpc_ros_tpu.config import SolverConfig as JSolverConfig
+from mpc_ros_tpu.models.obstacles import GaussianObstacles as JBlobs
+from mpc_ros_tpu.planner import plan_utils as jplan
+from mpc_ros_tpu.planner.tracking import TrackingController as JController
+from mpc_ros_tpu.sim.shapes import infinity
+from mpc_ros_tpu_torch.config import MPCParams, PlannerConfig, SolverConfig
+from mpc_ros_tpu_torch.models.obstacles import GaussianObstacles
+from mpc_ros_tpu_torch.planner.tracking import TrackingController
+from mpc_ros_tpu_torch.testing import torch_threads
+
+N = 12
+CYCLES = 30
+TOL_FIRST = 1e-8
+TOL = 1e-6
+LEAVES = dict(dt=0.1, ref_vel=0.5, max_angvel=1.5, w_cte=300.0)
+BIKE = dict(LEAVES, lf=0.25, max_steer=0.6)
+# one blob beside the course's first metres (world frame)
+BLOB = dict(cx=[3.0], cy=[0.45], sigma=[0.3], w=[60.0])
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these tests run many small ops, and the suite
+    runs in several processes at once (`testing.torch_threads`)."""
+    with torch_threads(1):
+        yield
+
+
+def _pair(leaves, model="diff_drive", native=False, **plan_kw):
+    pcfg = dict(local_plan_length=2.5, **plan_kw)
+    ours = TrackingController(MPCParams(**leaves),
+                              SolverConfig(n_steps=N, model=model),
+                              PlannerConfig(**pcfg), dtype=torch.float64,
+                              device="cpu")
+    ref = JController(JMPCParams(**leaves),
+                      JSolverConfig(n_steps=N, model=model),
+                      JPlannerConfig(**pcfg), dtype=jnp.float64)
+    ref._native_prep = native
+    return ours, ref
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, float), np.asarray(b, float)
+    return float(np.max(np.abs(a - b) / (1.0 + np.abs(b))))
+
+
+def _run(ours, ref, blobs=False, cycles=CYCLES, model="diff_drive"):
+    """Drive both controllers over `cycles` cycles of the course; returns
+    the worst relative difference per cycle of (state, coeffs, us, cost,
+    commands)."""
+    plan = infinity()
+    goal = plan[-1]
+    pose = plan[0].copy()
+    v = 0.0
+    lf = BIKE["lf"]
+    worst = []
+    for _ in range(cycles):
+        cut = jplan.truncate_by_length(jplan.cutoff_plan(plan, pose[:2]),
+                                       2.5)
+        ref_plan = jplan.downsample_plan(cut, 10)
+        if blobs:
+            ours.obstacles = GaussianObstacles.from_sigmas(
+                *(torch.tensor(BLOB[k], dtype=torch.float64)
+                  for k in ("cx", "cy", "sigma", "w"))).to_frame(pose)
+            ref.obstacles = JBlobs.from_sigmas(
+                *(jnp.asarray(BLOB[k], jnp.float64)
+                  for k in ("cx", "cy", "sigma", "w"))).to_frame(pose)
+        (v1, w1), d1 = ours.compute(pose, goal, v, ref_plan, raw_plan=cut)
+        (v2, w2), d2 = ref.compute(pose, goal, v, ref_plan, raw_plan=cut)
+        worst.append({
+            "state": _rel(d1.state, d2.state),
+            "coeffs": _rel(d1.coeffs, d2.coeffs),
+            "us": _rel(d1.solve.us, d2.solve.us),
+            "cost": _rel(d1.cost, d2.cost),
+            "cmd": _rel((v1, w1), (v2, w2))})
+        assert d1.solve.n_iters == d2.solve.n_iters
+        assert d1.solve.converged == d2.solve.converged
+        # the plant follows the JAX controller's command
+        yaw_rate = w2 if model == "diff_drive" else v2 / lf * w2
+        pose = pose + 0.1 * np.array([v2 * np.cos(pose[2]),
+                                      v2 * np.sin(pose[2]), yaw_rate])
+        v = v2
+    return worst
+
+
+def _check(worst):
+    first = max(worst[0].values())
+    assert first <= TOL_FIRST, worst[0]
+    over = max(max(w.values()) for w in worst)
+    assert over <= TOL, over
+    return first, over
+
+
+CASES = {
+    "delay": ({}, "diff_drive", False),
+    "no_delay": ({"delay_mode": False}, "diff_drive", False),
+    "unwrapped": ({"wrap_etheta": False}, "diff_drive", False),
+    "curvature": ({"curvature_slowdown": True, "max_lat_accel": 0.3},
+                  "diff_drive", False),
+    "blobs": ({}, "diff_drive", True),
+    "bicycle": ({}, "bicycle", False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_compute_equals_jax_over_cycles(case):
+    plan_kw, model, blobs = CASES[case]
+    ours, ref = _pair(BIKE if model == "bicycle" else LEAVES, model,
+                      **plan_kw)
+    _check(_run(ours, ref, blobs=blobs, model=model))
+    # the device carry is the last optimum; reset clears it
+    assert ours._warm_dev is not None
+    ours.reset()
+    assert ours._warm_dev is None and ours.w == 0.0
+
+
+def test_update_params_hot_reloads_like_jax():
+    ours, ref = _pair(LEAVES)
+    _run(ours, ref, cycles=3)
+    new = dict(LEAVES, ref_vel=0.3, w_cte=150.0)
+    ours.update_params(MPCParams(**new))
+    ref.update_params(JMPCParams(**new))
+    assert ours.ref_vel == ref.ref_vel == 0.3
+    _check(_run(ours, ref, cycles=5))
+
+
+def test_native_fit_differs_from_the_numpy_fit_by_rounding():
+    """The JAX controller with its native C++ fit (Householder QR) where it
+    builds: the port's numpy fit gives the same cycles to 1e-6."""
+    from mpc_ros_tpu.native import runtime
+
+    try:
+        runtime.plan_fit(np.ones((3, 2)) * [[0.0], [1.0], [2.0]],
+                         (0.0, 0.0, 0.0), 2)
+    except Exception as e:   # the library does not build here
+        pytest.skip(f"native fit unavailable: {e}")
+    ours, ref = _pair(LEAVES, native=True)
+    worst = _run(ours, ref, cycles=10)
+    assert ref._native_prep
+    assert max(max(w.values()) for w in worst) <= TOL
