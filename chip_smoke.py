@@ -115,6 +115,32 @@ them and never falls back to the CPU. Phases, one output line each:
 26. `TrajectoryTracker` on the infinity course at 0.4 m/s, the first 150
     cycles on the card: every record finite, dist_to_ref < 0.55 m; ms per
     cycle. No kernel runs on phases 21-26.
+27. fleet serving through the host pipeline (`FleetPlanner`), 1,024
+    robots on offset infinity courses (`bench.py --fleet`'s shape, N=20),
+    30 cycles on their own pose stream: the first 2 cycles apart (cold),
+    then ms per cycle (p50 / p99) and robot-cycles/s (robots x cycles
+    over the window's whole time) over the other 28, K1 launches per
+    cycle (one: the whole fleet's solve),
+    the tracking robots' convergence and iterations, and launches, copies
+    and synchronizations per cycle from a `torch.profiler` trace (and of
+    `begin_cycle` alone: no device-to-host copy, no sync); one warm
+    cycle's solve (its arguments recorded by wrapping the planner
+    module's `batch_solve_lane`) held against the plain version at the
+    single-pass gates and timed by its own device time (the profiler's
+    CUDA time of the kernel); then 5 cycles each of the bicycle fleet
+    (stage (g)) and of a fleet with one world blob per robot (stage (e)),
+    the same check on each;
+28. the device pipeline (`DeviceFleetPlanner`), f32 and 16-bit wires,
+    obs_every 1 and 0, 20 cycles at 1,024 and 8,192 robots, on the pose
+    stream of a host fleet on the card and held to the JAX package's
+    bars against it every cycle (states and cursors, commands, cte,
+    etheta, ref_vel); ms per cycle, robot-cycles/s, K1 launches and syncs
+    per cycle; one device cycle's solve against the plain version;
+29. `FleetTrajectoryTracker`, device and host pipelines, 30 cycles at
+    1,024 robots: ms per cycle, K1 (stage (f)) launches per cycle, the
+    device pipeline against the host's within 2e-3 on the commands and
+    1e-3 on the lags, and one cycle's setpoint solve against the plain
+    version.
 
 Every timed window of the whole-solve kernel (phases 4, 5, 10-12, 16,
 18, 19) reports the median, min and max of WINDOW launches, the SM clock
@@ -151,7 +177,7 @@ import time
 import numpy as np
 import torch
 
-from mpc_ros_tpu_torch.config import MPCParams, SolverConfig
+from mpc_ros_tpu_torch.config import MPCParams, PlannerConfig, SolverConfig
 from mpc_ros_tpu_torch.engine import (make_random_scenarios,
                                       receding_horizon_rollout,
                                       sample_weight_candidates, tuning_sweep)
@@ -2112,6 +2138,7 @@ def single_scenario(dev) -> dict:
 LOOP_PARAMS = dict(dt=0.1, ref_vel=0.5, max_angvel=1.5, w_cte=300.0,
                    w_angvel_d=10.0, w_accel_d=10.0)
 LOOP_STEPS = 20
+LOOP_PLANNER = PlannerConfig(local_plan_length=2.5)
 LOOP_MEAN_GEO, LOOP_MAX_GEO = 0.08, 0.25
 # phase 25: the first cycles on the card against the port on the CPU
 PARITY_CYCLES = 20
@@ -2124,13 +2151,11 @@ TRAJ_MAX_DIST = 0.55
 
 
 def loop_planner(dev, dtype=torch.float32):
-    from mpc_ros_tpu_torch.config import PlannerConfig
     from mpc_ros_tpu_torch.planner import MPCPlanner
 
     return MPCPlanner(MPCParams(**LOOP_PARAMS),
-                      SolverConfig(n_steps=LOOP_STEPS),
-                      PlannerConfig(local_plan_length=2.5), dtype=dtype,
-                      device=dev)
+                      SolverConfig(n_steps=LOOP_STEPS), LOOP_PLANNER,
+                      dtype=dtype, device=dev)
 
 
 def cycle_ms(times_s) -> dict:
@@ -2222,7 +2247,6 @@ def trajectory_tracking(dev) -> dict:
     """Phase 26: `TrajectoryTracker` on the infinity course at TRAJ_SPEED,
     the first TRAJ_CYCLES cycles on the card in float32: every record
     finite, dist_to_ref below TRAJ_MAX_DIST; ms per cycle."""
-    from mpc_ros_tpu_torch.config import PlannerConfig
     from mpc_ros_tpu_torch.planner import TimedTrajectory, TrajectoryTracker
     from mpc_ros_tpu_torch.sim import get_shape
     from mpc_ros_tpu_torch.sim.simulator import run_trajectory_tracking
@@ -2230,8 +2254,7 @@ def trajectory_tracking(dev) -> dict:
     tracker = TrajectoryTracker(
         MPCParams(**{k: v for k, v in LOOP_PARAMS.items()
                      if k != "ref_vel"}),
-        SolverConfig(n_steps=LOOP_STEPS),
-        PlannerConfig(local_plan_length=2.5), device=dev)
+        SolverConfig(n_steps=LOOP_STEPS), LOOP_PLANNER, device=dev)
     times = []
     compute = tracker.compute
 
@@ -2258,6 +2281,465 @@ def trajectory_tracking(dev) -> dict:
     return out
 
 
+# Fleet serving (phases 27-29), at `bench.py --fleet`'s and
+# `--fleet-trajectory`'s shapes: B robots on the infinity course moved by
+# 10 m x (i mod 64), N=20 at the default cap 60 (one pass), the fleet
+# weights of tests/test_fleet.py, a 2.5 m lookahead window. In float32 at
+# B % 128 == 0 each cycle's batched solve is one K1 launch for the whole
+# fleet: plain (phase 27), stage (g) for the bicycle, stage (e) with world
+# blobs, stage (f) in the trajectory tracker (phase 29).
+FLEET_B = 1024
+# the device planner also at the JAX package's serving width (a TPU
+# figure, not a target)
+FLEET_BIG = 8192
+FLEET_CYCLES = 30
+FLEET_SHORT = 5
+FLEET_DEVICE_CYCLES = 20
+FLEET_PROFILED = 5
+FLEET_LEAVES = dict(max_angvel=1.5, w_cte=300.0, w_angvel_d=10.0,
+                    w_accel_d=10.0)
+FLEET = SolverConfig(n_steps=LOOP_STEPS)
+FLEET_BICYCLE = dataclasses.replace(FLEET, model="bicycle")
+FLEET_LF = 0.25
+# the cycle whose solve is held against the plain version (warm)
+FLEET_CAPTURE = 3
+# the first cycles of a run (cold: first allocations, library handles)
+# are reported apart and left out of the timed window
+FLEET_COLD = 2
+# the JAX package's bars between the device and the host pipelines
+# (tests/test_fleet_device.py:64-77, :280-296,
+# tests/test_trajectory_tracking.py:234-236)
+BAR_CMD, BAR_ERR, BAR_REFV = 2e-3, 1e-3, 1e-5
+BAR_I16_SAME, BAR_I16_ALL, BAR_I16_KNOTS = 3e-3, 3e-2, 3
+BAR_LAG = 1e-3
+
+
+def fleet_params(model: str = "diff_drive") -> MPCParams:
+    leaves = dict(FLEET_LEAVES)
+    if model == "bicycle":
+        leaves.update(lf=FLEET_LF, max_steer=0.6)
+    return MPCParams(**leaves)
+
+
+def fleet_plans(B: int) -> list:
+    from mpc_ros_tpu_torch.testing import fleet_courses
+
+    return fleet_courses(B, offset=10.0, period=64)
+
+
+class SolveTap:
+    """Records the arguments of the `batch_solve_lane` call a planner
+    module makes on the cycle asked for (`want`), by wrapping the module's
+    attribute for the `with` block; the package is left as it is."""
+
+    def __init__(self, module):
+        self.module = module
+        self.orig = module.batch_solve_lane
+        self.want = False
+        self.calls = []
+
+    def __enter__(self):
+        self.module.batch_solve_lane = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.batch_solve_lane = self.orig
+
+    def __call__(self, *a, **kw):
+        if self.want:
+            self.calls.append((a, kw))
+            self.want = False
+        return self.orig(*a, **kw)
+
+
+def kernel_own_ms(call, kernel: str = "solve_mega_kernel",
+                  reps: int = WINDOW) -> dict:
+    """The kernel's own device time per launch of `call` (one launch per
+    call), after one untimed call: the CUDA time of `kernel` in a
+    `torch.profiler` trace of `reps` calls, and CUDA events around each
+    call with the stream held busy ahead of the window
+    (`torch.cuda._sleep`), so that the host's work in the wrapper is
+    enqueued while the card sleeps and falls outside each pair. Medians
+    in ms; `kernel_ms` is the profiler's, or the events' where the trace
+    holds no launch of `kernel`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    traced = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and kernel in e.name]
+    evs = [(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(50_000_000)
+    for a, b in evs:
+        a.record()
+        call()
+        b.record()
+    torch.cuda.synchronize()
+    events = [a.elapsed_time(b) for a, b in evs]
+    out = dict(profiler_ms=statistics.median(traced) if traced else None,
+               profiler_launches=len(traced),
+               events_ms=statistics.median(events), events_max_ms=max(events))
+    out["kernel_ms"] = (out["profiler_ms"] if len(traced) == reps
+                        else out["events_ms"])
+    out["kernel_ms_from"] = ("profiler" if len(traced) == reps
+                             else "events")
+    return out
+
+
+def fleet_k1_check(call, what: str) -> dict:
+    """One fleet cycle's solve (the arguments a `SolveTap` recorded) run
+    again through the kernel's wrapper and held against the plain version
+    on the same inputs at the single-pass gates (raises on a broken
+    gate). `kernel_ms` is the kernel's own device time
+    (`kernel_own_ms`); `wrapper_window` times the whole wrapper call
+    (`timed_launch`: the host's allocation and launch included)."""
+    (z0s, coeffs, p, cfg), kw = call
+    ins = lane_inputs(z0s, coeffs, p, cfg, kw.get("u_init"))
+    blobs = kw.get("blobs")
+    bl = None if blobs is None else tuple(blobs.lane())
+    rf = None if kw.get("refs") is None else lane_major(kw["refs"])
+    _, win, bound, wmax = timed_launch(ins, cfg, blobs=bl, refs=rf)
+    own = kernel_own_ms(lambda: solve_mega.solve_mega_cuda(
+        *ins, cfg, blobs=bl, refs=rf))
+    g, t_k, t_p, _, _ = held_against_plain(ins, cfg, what, blobs=bl,
+                                           refs=rf)
+    return dict(kernel_ms=own["kernel_ms"], own=own, plain_ms=t_p * 1e3,
+                bound_ms=bound[0], bound_by=bound[1],
+                mean_warp_max_iters=wmax, wrapper_window=win, vs_plain=g)
+
+
+def fleet_rate(times_s, B: int) -> dict:
+    """A fleet run's host-clock times: the first FLEET_COLD cycles apart
+    (`cold_ms`); over the rest, ms per cycle (p50, p99, max) and
+    robot-cycles/s as B x cycles over the window's whole time."""
+    warm = np.asarray(times_s[FLEET_COLD:])
+    ms = warm * 1e3
+    return dict(cold_ms=[float(t) * 1e3 for t in times_s[:FLEET_COLD]],
+                cycle_ms=dict(p50=float(np.percentile(ms, 50)),
+                              p99=float(np.percentile(ms, 99)),
+                              max=float(ms.max()), cycles=int(ms.size)),
+                robot_cycles_per_s=B * warm.size / float(warm.sum()))
+
+
+def profile_cycles(fn, n: int) -> dict:
+    """`n` calls of `fn` traced by `torch.profiler` (CPU and CUDA): per
+    call the kernel launches, host-to-device and device-to-host copies,
+    stream and device synchronizations (less those of an empty trace: the
+    profiler's own), and the device time (the CUDA kernels' and copies'
+    own time; None when the trace holds none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def trace(k):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(k):
+                fn()
+            wall = time.perf_counter() - t0
+        ev = prof.key_averages()
+
+        def count(pred):
+            return sum(e.count for e in ev if pred(e.key))
+
+        return wall, ev, dict(
+            kernel_launches=count(lambda k: k in (
+                "cudaLaunchKernel", "cuLaunchKernel",
+                "cudaLaunchKernelExC")),
+            h2d_copies=count(lambda k: "HtoD" in k),
+            d2h_copies=count(lambda k: "DtoH" in k),
+            syncs=count(lambda k: k in ("cudaStreamSynchronize",
+                                        "cudaDeviceSynchronize")))
+
+    own = trace(0)[2]
+    wall, ev, got = trace(n)
+    dev_us = sum(e.self_device_time_total for e in ev
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    out = {k: (v - own[k]) / n for k, v in got.items()}
+    out.update(calls=n, profiler_own=own, wall_ms_per_call=wall / n * 1e3,
+               device_ms_per_call=dev_us / n / 1e3 if dev_us else None,
+               device_busy_share=dev_us / 1e6 / wall if dev_us else None)
+    return out
+
+
+def fleet_drive(fp, plans, cycles: int, tap=None, lf=None,
+                trace: bool = False) -> dict:
+    """A fleet planner on its own pose stream (the poses advanced by its
+    commands): the host-clock ms of each `compute_velocity_commands` (it
+    ends in the cycle's fetch), K1 launches, the tracking robots'
+    convergence and iterations, every command finite; with `tap` the
+    solve of cycle FLEET_CAPTURE recorded; with `trace` each cycle's
+    (poses, feedback, commands, info, cursors) kept for a replay."""
+    from mpc_ros_tpu_torch.testing import step_poses
+
+    B = len(plans)
+    poses = np.stack([pl[0] for pl in plans]).astype(float)
+    fb = np.zeros((B, 2))
+    if not fp.set_plans(plans, poses).all():
+        raise SystemExit("fleet: a plan was refused")
+    times, conv, iters, record = [], [], [], []
+    reset_launches()
+    for c in range(cycles):
+        if tap is not None:
+            tap.want = c == FLEET_CAPTURE
+        seen, fb_seen = poses.copy(), fb.copy()
+        t0 = time.perf_counter()
+        _, cmds, info = fp.compute_velocity_commands(seen, fb_seen)
+        times.append(time.perf_counter() - t0)
+        if not np.isfinite(cmds).all():
+            raise SystemExit(f"fleet: non-finite commands at cycle {c}")
+        track = np.isfinite(info.cost)
+        conv.append(info.converged[track])
+        iters.append(info.n_iters[track])
+        if trace:
+            record.append((seen, fb_seen, cmds, info, fp._start.copy()))
+        fb = step_poses(poses, cmds, 0.1, lf)
+    launches = solve_mega.launches
+    conv, iters = np.concatenate(conv), np.concatenate(iters)
+    return dict(batch=B, cycles=cycles, **fleet_rate(times, B),
+                k1_launches=launches, k1_launches_per_cycle=launches / cycles,
+                tracking_robot_cycles=int(conv.size),
+                converged_frac=float(conv.mean()),
+                mean_iters=float(iters.mean()), max_iters=int(iters.max()),
+                trace=record)
+
+
+def fleet_host(dev) -> dict:
+    """Phase 27: `FleetPlanner` on the card, FLEET_B robots, FLEET_CYCLES
+    cycles: ms per cycle, robot-cycles/s, K1 launches per cycle (one: the
+    whole fleet's solve), the tracking robots' convergence; a traced
+    stretch of FLEET_PROFILED cycles (launches, copies and syncs per
+    cycle; `begin_cycle` alone neither copies to the host nor syncs); one
+    warm cycle's solve held against the plain version. Then
+    FLEET_SHORT cycles each of the bicycle fleet (stage (g)) and of a
+    fleet with one world blob per robot (stage (e)), the same check on
+    each."""
+    from mpc_ros_tpu_torch.planner import FleetPlanner, fleet
+
+    def planner(model="diff_drive"):
+        fp = FleetPlanner(fleet_params(model),
+                          FLEET_BICYCLE if model == "bicycle" else FLEET,
+                          LOOP_PLANNER, device=dev)
+        fp.initialize(FLEET_B)
+        return fp
+
+    plans = fleet_plans(FLEET_B)
+    out = {}
+    with SolveTap(fleet) as tap:
+        fp = planner()
+        run = fleet_drive(fp, plans, FLEET_CYCLES, tap)
+        run.pop("trace")
+        if run["k1_launches"] != FLEET_CYCLES:
+            raise SystemExit(f"fleet_host: {run['k1_launches']} K1 launches "
+                             f"in {FLEET_CYCLES} cycles")
+        last = np.stack([pl[0] for pl in plans]).astype(float)
+        fb = np.zeros((FLEET_B, 2))
+        run["profile"] = profile_cycles(
+            lambda: fp.compute_velocity_commands(last, fb), FLEET_PROFILED)
+        # begin_cycle alone (the pipelined loop's first half) reads
+        # nothing back from the card
+        pending = []
+        run["begin_cycle_profile"] = profile_cycles(
+            lambda: pending.append(fp.begin_cycle(last, fb)), FLEET_PROFILED)
+        for h in pending:
+            fp.finish_cycle(h)
+        if (run["begin_cycle_profile"]["d2h_copies"]
+                or run["begin_cycle_profile"]["syncs"]):
+            raise SystemExit(f"fleet_host: begin_cycle read the device: "
+                             f"{run['begin_cycle_profile']}")
+        run["k1"] = fleet_k1_check(tap.calls.pop(), "fleet_host")
+        out["plain"] = run
+        # the bicycle (stage (g)), and one world blob per robot ahead on
+        # its course (stage (e))
+        for name in ("bicycle", "blobs"):
+            fp = planner("bicycle" if name == "bicycle" else "diff_drive")
+            if name == "blobs":
+                ahead = np.stack([pl[40] for pl in plans])
+                fp.set_obstacles(GaussianObstacles.from_sigmas(
+                    *(torch.tensor(a, dtype=torch.float32, device=dev)
+                      for a in (ahead[:, :1] + 0.2, ahead[:, 1:2],
+                                np.full((FLEET_B, 1), 0.3),
+                                np.full((FLEET_B, 1), 50.0)))))
+            r = fleet_drive(fp, plans, FLEET_SHORT, tap,
+                            lf=FLEET_LF if name == "bicycle" else None)
+            r.pop("trace")
+            if r["k1_launches"] != FLEET_SHORT:
+                raise SystemExit(f"fleet_host {name}: {r['k1_launches']} "
+                                 f"K1 launches in {FLEET_SHORT} cycles")
+            r["k1"] = fleet_k1_check(tap.calls.pop(), f"fleet_host {name}")
+            out[name] = r
+    emit("fleet_host", **out)
+    return out
+
+
+def fleet_replay(dp, trace, profiled: bool) -> dict:
+    """A device fleet planner fed a host fleet's recorded pose stream,
+    held to the JAX bars against the host's outputs every cycle: the FSM
+    states (on observed cycles), the cursors (equal; on the 16-bit wire
+    within one knot on at most BAR_I16_KNOTS robots), the commands (the
+    16-bit wire: BAR_I16_SAME on equal cursors, BAR_I16_ALL on all), cte,
+    etheta and ref_vel of the tracking robots (observed cycles, f32
+    wire). Raises on a broken bar. Returns the device planner's ms per
+    cycle, robot-cycles/s, K1 launches and the largest deviations."""
+    times, worst = [], dict(cmd=0.0, cte=0.0, etheta=0.0, ref_vel=0.0,
+                            cursor_knots=0)
+    reset_launches()
+    for c, (poses, fb, cmds_h, info_h, start_h) in enumerate(trace):
+        t0 = time.perf_counter()
+        _, cmds, info = dp.compute_velocity_commands(poses, fb)
+        times.append(time.perf_counter() - t0)
+        dcur = np.abs(dp._carry["start"].cpu().numpy() - start_h)
+        dcmd = np.abs(cmds - cmds_h).max(axis=1)
+        worst["cursor_knots"] = max(worst["cursor_knots"], int(dcur.max()))
+        worst["cmd"] = max(worst["cmd"], float(dcmd.max()))
+        if dp.wire == "f32":
+            ok = dcur.max() == 0 and dcmd.max() < BAR_CMD
+        else:
+            ok = (dcur.max() <= 1 and (dcur > 0).sum() <= BAR_I16_KNOTS
+                  and dcmd[dcur == 0].max() < BAR_I16_SAME
+                  and dcmd.max() < BAR_I16_ALL)
+        if info.observed.all():
+            ok &= bool(np.array_equal(info.states, info_h.states))
+            tr = info_h.states == 0
+            if dp.wire == "f32" and tr.any():
+                for k, bar in (("cte", BAR_ERR), ("etheta", BAR_ERR),
+                               ("ref_vel", BAR_REFV)):
+                    d = float(np.nanmax(np.abs(getattr(info, k)
+                                               - getattr(info_h, k))[tr]))
+                    worst[k] = max(worst[k], d)
+                    ok &= d < bar
+        if not ok:
+            raise SystemExit(f"fleet_device (wire {dp.wire}, obs_every "
+                             f"{dp.obs_every}, B={len(fb)}) against the host "
+                             f"fleet at cycle {c}: {worst}, cursors {dcur}")
+    launches = solve_mega.launches
+    if launches != len(trace):
+        raise SystemExit(f"fleet_device: {launches} K1 launches in "
+                         f"{len(trace)} cycles")
+    out = dict(wire=dp.wire, obs_every=dp.obs_every,
+               **fleet_rate(times, len(fb)),
+               k1_launches_per_cycle=launches / len(trace), worst=worst)
+    if profiled:
+        poses, fb = trace[-1][:2]
+        out["profile"] = profile_cycles(
+            lambda: dp.compute_velocity_commands(poses, fb), FLEET_PROFILED)
+    return out
+
+
+def fleet_device(dev) -> dict:
+    """Phase 28: `DeviceFleetPlanner` with the f32 and the 16-bit wire,
+    obs_every 1 and 0, FLEET_DEVICE_CYCLES cycles at FLEET_B and
+    FLEET_BIG robots, on the pose stream of a host `FleetPlanner` on the
+    card and held to the JAX bars against it (`fleet_replay`); ms per
+    cycle, robot-cycles/s, K1 launches per cycle, and a traced stretch
+    (launches, copies, syncs per cycle) of each wire at obs_every 1; one
+    device cycle's solve held against the plain version."""
+    from mpc_ros_tpu_torch.planner import (DeviceFleetPlanner, FleetPlanner,
+                                           fleet_device as fleet_dev_mod)
+
+    out = {}
+    for B in (FLEET_B, FLEET_BIG):
+        plans = fleet_plans(B)
+        host = FleetPlanner(fleet_params(), FLEET, LOOP_PLANNER, device=dev)
+        host.initialize(B)
+        ref = fleet_drive(host, plans, FLEET_DEVICE_CYCLES, trace=True)
+        trace = ref.pop("trace")
+        rows = {"host": ref}
+        for wire in ("f32", "i16"):
+            for obs_every in (1, 0):
+                dp = DeviceFleetPlanner(fleet_params(), FLEET, LOOP_PLANNER,
+                                        device=dev, wire=wire,
+                                        obs_every=obs_every)
+                dp.initialize(B)
+                poses0 = np.stack([pl[0] for pl in plans]).astype(float)
+                if not dp.set_plans(plans, poses0).all():
+                    raise SystemExit("fleet_device: a plan was refused")
+                rows[f"{wire},obs_every={obs_every}"] = fleet_replay(
+                    dp, trace, profiled=obs_every == 1)
+        out[f"B={B}"] = rows
+    # one warm device cycle's solve against the plain version
+    with SolveTap(fleet_dev_mod) as tap:
+        dp = DeviceFleetPlanner(fleet_params(), FLEET, LOOP_PLANNER,
+                                device=dev)
+        dp.initialize(FLEET_B)
+        fleet_drive(dp, fleet_plans(FLEET_B), FLEET_CAPTURE + 1, tap)
+        out["k1"] = fleet_k1_check(tap.calls.pop(), "fleet_device")
+    emit("fleet_device", **out)
+    return out
+
+
+def fleet_trajectory(dev) -> dict:
+    """Phase 29: `FleetTrajectoryTracker`, device and host pipelines,
+    FLEET_CYCLES cycles at FLEET_B robots (`bench.py --fleet-trajectory`'s
+    trajectories: speed 0.3 + 0.002 (i mod 64)): ms per cycle, K1 (stage
+    (f)) launches per cycle, the device pipeline against the host
+    pipeline's pose stream within BAR_CMD on the commands and BAR_LAG on
+    the lags every cycle, and one device cycle's solve against the plain
+    version."""
+    from mpc_ros_tpu_torch.planner import (FleetTrajectoryTracker,
+                                           TimedTrajectory, trajectory)
+    from mpc_ros_tpu_torch.testing import step_poses
+
+    B = FLEET_B
+    trajs = [TimedTrajectory.from_path(pl, 0.3 + 0.002 * (i % 64))
+             for i, pl in enumerate(fleet_plans(B))]
+    params_ = MPCParams(dt=0.1, **FLEET_LEAVES)
+
+    def tracker(pipeline):
+        tr = FleetTrajectoryTracker(params_, FLEET, LOOP_PLANNER,
+                                    pipeline=pipeline, device=dev)
+        tr.set_trajectories(trajs)
+        return tr
+
+    host, devp = tracker("host"), tracker("device")
+    poses = np.stack([np.r_[t.xy[0], t.yaw[0]] for t in trajs])
+    vs = np.zeros(B)
+    times = {"host": [], "device": []}
+    launches = {"host": 0, "device": 0}
+    worst = dict(cmd=0.0, lag=0.0)
+    with SolveTap(trajectory) as tap:
+        for c in range(FLEET_CYCLES):
+            outs = {}
+            for name, tr in (("host", host), ("device", devp)):
+                tap.want = name == "device" and c == FLEET_CAPTURE
+                reset_launches()
+                t0 = time.perf_counter()
+                outs[name] = tr.compute(c * 0.1, poses.copy(), vs.copy())
+                times[name].append(time.perf_counter() - t0)
+                launches[name] += solve_mega.launches
+            (c_h, l_h), (c_d, l_d) = outs["host"], outs["device"]
+            dc = float(np.abs(c_h - c_d).max())
+            dl = float(np.abs(l_h - l_d).max())
+            worst["cmd"], worst["lag"] = (max(worst["cmd"], dc),
+                                          max(worst["lag"], dl))
+            if not (dc < BAR_CMD and dl < BAR_LAG
+                    and np.isfinite(c_d).all()):
+                raise SystemExit(f"fleet_trajectory: device against host at "
+                                 f"cycle {c}: {worst}")
+            vs = step_poses(poses, c_h, 0.1)[:, 0]
+        k1 = fleet_k1_check(tap.calls.pop(), "fleet_trajectory")
+    if launches != {"host": FLEET_CYCLES, "device": FLEET_CYCLES}:
+        raise SystemExit(f"fleet_trajectory: K1 launches {launches} in "
+                         f"{FLEET_CYCLES} cycles")
+    t = poses.copy()
+    out = {name: dict(**fleet_rate(times[name], B),
+                      k1_launches=launches[name],
+                      k1_launches_per_cycle=launches[name] / FLEET_CYCLES)
+           for name in times}
+    out["device"]["profile"] = profile_cycles(
+        lambda: devp.compute(FLEET_CYCLES * 0.1, t, vs), FLEET_PROFILED)
+    out.update(batch=B, cycles=FLEET_CYCLES, worst=worst,
+               bars=dict(cmd=BAR_CMD, lag=BAR_LAG), k1=k1)
+    emit("fleet_trajectory", **out)
+    return out
+
+
 def build_pairs(survey: bool = False) -> set:
     """Every (kernel, variant) pair the phases launch (the survey's alone
     with `survey`): the whole-solve kernel's variants, then the fused
@@ -2273,6 +2755,10 @@ def build_pairs(survey: bool = False) -> set:
             (LONG, K_MAIN, True),
             (solve_mega.compact_pass1_cfg(LONG), K_MAIN, True)] + [
             (c, K_MAIN if bl else 0, rf) for _, c, bl, rf, _ in EFG_VARIANTS]
+        # the fleet's solves (phases 27-29): plain, world blobs, the
+        # bicycle, the trajectory tracker's setpoints
+        cfgs += [(FLEET, 0, False), (FLEET, 1, False),
+                 (FLEET_BICYCLE, 0, False), (FLEET, 0, True)]
     pairs = {("solve_mega", solve_mega.resolve_knobs(
         cfg, torch.float32, n_blobs=k, has_setp=rf).variant)
         for cfg, k, rf in cfgs}
@@ -2340,6 +2826,13 @@ def main(argv) -> None:
     closed_loop(dev)
     closed_loop_cpu_parity(dev)
     trajectory_tracking(dev)
+    fh = fleet_host(dev)
+    fd = fleet_device(dev)
+    ft = fleet_trajectory(dev)
+    fleet_err = max(fh[k]["k1"]["vs_plain"]["max_du"]
+                    for k in ("plain", "bicycle", "blobs"))
+    fleet_err = max(fleet_err, fd["k1"]["vs_plain"]["max_du"])
+    fk = fh["plain"]["k1"]
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound):
         return {"name": name, "route": "cuda",
@@ -2380,6 +2873,19 @@ def main(argv) -> None:
               max(efg["refs"], rf["vs_plain"]["max_du"], sched_err),
               rf["kernel_ms"], rf["plain_ms"],
               (rf["bound_ms"], rf["bound_by"])),
+        # the same kernel serving a fleet, one launch per cycle: the host
+        # pipeline's main run (its plain, bicycle and blob solves and the
+        # device pipeline's held against the plain version), and the
+        # trajectory tracker's setpoint solves (stage (f))
+        entry("solve_mega[fleet]", "solve_mega.cu",
+              "mpc_ros_tpu/kernels/solve_pallas.py:53",
+              fh["plain"]["k1_launches"], fleet_err, fk["kernel_ms"],
+              fk["plain_ms"], (fk["bound_ms"], fk["bound_by"])),
+        entry("solve_mega[fleet_refs]", "solve_mega.cu",
+              "mpc_ros_tpu/kernels/solve_pallas.py:53",
+              ft["device"]["k1_launches"], ft["k1"]["vs_plain"]["max_du"],
+              ft["k1"]["kernel_ms"], ft["k1"]["plain_ms"],
+              (ft["k1"]["bound_ms"], ft["k1"]["bound_by"])),
         entry("backward_fused", "backward_fused.cu",
               "mpc_ros_tpu/kernels/backward_fused_pallas.py:52",
               rm["launches"]["backward_fused"], st["bwd_err"], rm["bwd_ms"],

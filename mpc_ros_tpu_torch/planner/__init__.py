@@ -1,8 +1,11 @@
 from . import plan_utils
 from .fsm import DrivingState, check_transition, rotate_command, seed_state
+from .fleet import FleetCycleInfo, FleetPlanner
+from .fleet_device import DeviceFleetPlanner
 from .planner import CycleInfo, MPCPlanner
 from .tracking import TrackingController, TrackingDebug
-from .trajectory import TimedTrajectory, TrajectoryDebug, TrajectoryTracker
+from .trajectory import (FleetTrajectoryTracker, TimedTrajectory,
+                         TrajectoryDebug, TrajectoryTracker)
 
 __all__ = [
     "DrivingState",
@@ -13,6 +16,10 @@ __all__ = [
     "CycleInfo",
     "TrackingController",
     "TrackingDebug",
+    "FleetPlanner",
+    "DeviceFleetPlanner",
+    "FleetCycleInfo",
+    "FleetTrajectoryTracker",
     "TimedTrajectory",
     "TrajectoryTracker",
     "TrajectoryDebug",

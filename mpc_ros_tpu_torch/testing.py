@@ -140,3 +140,33 @@ def nonfinite_agreement(kernel, plain, clean, lanes, tol: float) -> dict:
     rec["ok"] = (rec["nan_pattern"] and rec["inf_pattern"]
                  and rec["max_rel"] <= tol and rec["others_unchanged"])
     return rec
+
+
+def fleet_courses(batch: int, shapes=("infinity",), offset: float = 10.0,
+                  period: int = 0, stagger: int = 0) -> list:
+    """Plans for a fleet: robot i drives the course shapes[i % len(shapes)]
+    (`sim.get_shape`, (M, 3) with headings) moved by offset * (i % period)
+    in x and in y (period 0: by offset * i), with stagger * (i % 3) knots
+    cut from its end (plans of unequal lengths exercise the padding)."""
+    from .sim import get_shape
+
+    plans = []
+    for i in range(batch):
+        plan = get_shape(shapes[i % len(shapes)]).copy()
+        plan[:, :2] += offset * (i % period if period else i)
+        plans.append(plan[: len(plan) - stagger * (i % 3)])
+    return plans
+
+
+def step_poses(poses: np.ndarray, cmds: np.ndarray, dt: float,
+               lf=None) -> np.ndarray:
+    """The kinematic plant one control period on, in place: poses (B, 3)
+    driven by cmds (B, 2) = (v, u0), u0 the yaw rate (diff drive) or, with
+    a wheelbase `lf`, the steering angle (bicycle: yaw rate v / lf u0).
+    Returns the (B, 2) feedback (v, yaw rate)."""
+    v = cmds[:, 0]
+    w = cmds[:, 1] if lf is None else v / lf * cmds[:, 1]
+    poses[:, 0] += v * np.cos(poses[:, 2]) * dt
+    poses[:, 1] += v * np.sin(poses[:, 2]) * dt
+    poses[:, 2] += w * dt
+    return np.stack([v, w], axis=1)

@@ -3,7 +3,9 @@ the three kernels against their plain versions on the card (the solve
 kernel also with resume state and the per-block exit), the main path, the
 long-horizon compact schedule and the two-kernel route launching them, the
 XLA lane path taking what the kernels do not, and the single-robot closed
-loop (the planner and the trajectory tracker on the three courses). Run on
+loop (the planner and the trajectory tracker on the three courses) and
+fleet serving (the host and device pipelines and the fleet trajectory
+tracker, with K1 launched once per cycle). Run on
 the card with
 `python -m pytest --noconftest tests/test_torch_cuda.py` (tests/conftest.py
 configures JAX, which the card's machine need not have).
@@ -697,3 +699,133 @@ def test_timed_courses_on_the_card(dev, shape, speed, mean_bar, max_bar):
     assert res.course_time_s < 1.15 * traj.duration + 2.0
     assert np.all(np.isfinite(res.records))
     assert tracker._warm_dev.is_cuda
+
+
+# Fleet serving on the card (float32, N=20, 128 robots: one K1 launch per
+# cycle for the whole fleet), the fleet of tests/test_fleet.py.
+FLEET = dict(max_angvel=1.5, w_cte=300.0, w_angvel_d=10.0, w_accel_d=10.0)
+
+
+def _fleet(kind, dev, B, **kw):
+    from mpc_ros_tpu_torch.config import PlannerConfig
+    from mpc_ros_tpu_torch.planner import DeviceFleetPlanner, FleetPlanner
+
+    cls = DeviceFleetPlanner if kind == "device" else FleetPlanner
+    fp = cls(MPCParams(**FLEET), SolverConfig(n_steps=20),
+             PlannerConfig(local_plan_length=2.5), device=dev, **kw)
+    fp.initialize(B)
+    return fp
+
+
+def test_fleet_reaches_every_goal_through_the_kernel(dev):
+    """128 robots on the three courses (offset copies) reach every goal
+    within xy_goal_tolerance, one K1 launch per cycle with a tracking
+    robot."""
+    import numpy as np
+
+    from mpc_ros_tpu_torch.testing import fleet_courses, step_poses
+
+    B = 128
+    fp = _fleet("host", dev, B)
+    plans = fleet_courses(B, ("infinity", "epitrochoid", "square"))
+    poses = np.stack([p[0] for p in plans]).astype(float)
+    assert fp.set_plans(plans, poses).all()
+    fb = np.zeros((B, 2))
+    done = np.zeros(B, bool)
+    before, tracking_cycles = solve_mega.launches, 0
+    for _ in range(2500):
+        done |= fp.is_goal_reached(poses, fb)
+        if done.all():
+            break
+        ok, cmds, info = fp.compute_velocity_commands(poses, fb)
+        tracking_cycles += bool(np.isfinite(info.cost).any())
+        assert np.isfinite(cmds).all()
+        cmds[~(ok & ~done)] = 0.0
+        fb = step_poses(poses, cmds, 0.1)
+    assert done.all(), int(done.sum())
+    goals = np.stack([p[-1] for p in plans])
+    d = np.hypot(*(poses[:, :2] - goals[:, :2]).T)
+    assert d.max() <= fp.planner_cfg.limits.xy_goal_tolerance + 1e-9
+    assert solve_mega.launches - before == tracking_cycles > 0
+    assert fp._warm.is_cuda and fp.params.w_cte.is_cuda
+
+
+@pytest.mark.parametrize("wire", ["f32", "i16"])
+def test_device_fleet_matches_host_on_the_card(dev, wire):
+    """The device pipeline against the host pipeline on the card at the
+    JAX package's bars (tests/test_fleet_device.py), one K1 launch per
+    cycle each."""
+    import numpy as np
+
+    from mpc_ros_tpu_torch.testing import fleet_courses, step_poses
+
+    B = 128
+    host, fd = _fleet("host", dev, B), _fleet("device", dev, B, wire=wire)
+    plans = fleet_courses(B, offset=3.0, stagger=37)
+    poses = np.stack([p[0] for p in plans]).astype(float)
+    for fp in (host, fd):
+        assert fp.set_plans(plans, poses).all()
+    fb = np.zeros((B, 2))
+    for cyc in range(10):
+        before = solve_mega.launches
+        _, c_h, i_h = host.compute_velocity_commands(poses, fb)
+        _, c_d, i_d = fd.compute_velocity_commands(poses, fb)
+        assert solve_mega.launches - before == 2
+        np.testing.assert_array_equal(i_h.states, i_d.states)
+        dcur = np.abs(host._start - fd._carry["start"].cpu().numpy())
+        dcmd = np.abs(c_h - c_d).max(axis=1)
+        if wire == "f32":
+            assert dcur.max() == 0 and dcmd.max() < 2e-3, (cyc, dcmd.max())
+            tr = i_h.states == 0
+            assert np.nanmax(np.abs(i_h.cte - i_d.cte)[tr]) < 1e-3
+            assert np.nanmax(np.abs(i_h.etheta - i_d.etheta)[tr]) < 1e-3
+            assert np.nanmax(np.abs(i_h.ref_vel - i_d.ref_vel)[tr]) < 1e-5
+        else:
+            assert dcur.max() <= 1 and (dcur > 0).sum() <= 3
+            assert dcmd[dcur == 0].max() < 3e-3 and dcmd.max() < 3e-2
+        fb = step_poses(poses, c_h, 0.1)
+    assert fd._carry["warm"].is_cuda
+
+
+def test_fleet_trajectory_device_pipeline_on_the_card(dev):
+    """The fleet trajectory tracker's device pipeline against its host
+    pipeline at B=128 (tests/test_trajectory_tracking.py's bars), one K1
+    launch with per-knot setpoints (stage (f)) per cycle each."""
+    import numpy as np
+
+    from mpc_ros_tpu_torch.config import PlannerConfig
+    from mpc_ros_tpu_torch.planner import (FleetTrajectoryTracker,
+                                           TimedTrajectory)
+    from mpc_ros_tpu_torch.testing import fleet_courses, step_poses
+
+    B = 128
+    trajs = [TimedTrajectory.from_path(p[:240], 0.35 + 0.001 * i)
+             for i, p in enumerate(fleet_courses(B, offset=3.0))]
+    pair = []
+    for pipeline in ("host", "device"):
+        tr = FleetTrajectoryTracker(
+            MPCParams(dt=0.1, **FLEET), SolverConfig(n_steps=20),
+            PlannerConfig(local_plan_length=2.5), pipeline=pipeline,
+            device=dev)
+        tr.set_trajectories(trajs)
+        pair.append(tr)
+    poses = np.stack([np.r_[t.xy[0], t.yaw[0]] for t in trajs])
+    vs = np.zeros(B)
+    for cyc in range(10):
+        before = solve_mega.launches
+        (c_h, l_h), (c_d, l_d) = (tr.compute(cyc * 0.1, poses.copy(), vs)
+                                  for tr in pair)
+        assert solve_mega.launches - before == 2
+        assert np.abs(c_h - c_d).max() < 2e-3, cyc
+        assert np.abs(l_h - l_d).max() < 1e-3, cyc
+        vs = step_poses(poses, c_h, 0.1)[:, 0]
+    assert pair[1]._warm_us.is_cuda
+
+
+def test_fleet_entry_points_default_to_the_card(dev):
+    from mpc_ros_tpu_torch.planner import (DeviceFleetPlanner, FleetPlanner,
+                                           FleetTrajectoryTracker)
+
+    for obj in (FleetPlanner(), DeviceFleetPlanner(),
+                FleetTrajectoryTracker(MPCParams(), SolverConfig())):
+        assert obj.device.type == "cuda" and obj.params.w_cte.is_cuda
