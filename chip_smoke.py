@@ -31,7 +31,10 @@ them and never falls back to the CPU. Phases, one output line each:
     against the route with the plain versions; then (6b) lanes planted
     with NaN, inf or an overflowing coefficient through K4, K5 (B=1,024)
     and K1 (N=30, B=8,192, production and bicycle variants) against the
-    plain versions, every output held to one rule;
+    plain versions, every output held to one rule; and K1 on the lane of
+    `testing.next_backward_witness` (done on a finite trajectory whose next
+    backward overflows; one block, N=12, per lane and under the per-block
+    exit), every output bit for bit;
  7. the two-kernel main path: `batch_solve_lane(backward="pallas")` at
     B=524,288 — solves/s, K4 time per launch, K5 time on the inputs of
     each of a solve's iterations (act share, second-pass lanes and
@@ -140,7 +143,14 @@ them and never falls back to the CPU. Phases, one output line each:
     1,024 robots: ms per cycle, K1 (stage (f)) launches per cycle, the
     device pipeline against the host's within 2e-3 on the commands and
     1e-3 on the lags, and one cycle's setpoint solve against the plain
-    version.
+    version;
+30. `bench_cuda.kernel_verify` on the card: K1 against the XLA lane path
+    (not its plain version) at `bench.py --verify`'s gates, plain, blobs
+    and bicycle at N=30, B=1,024, and the compact N=48 schedule at
+    B=4,096 with compaction read engaged from the schedule's counters;
+31. the baseline controllers of `sim.compare` (Pure Pursuit, DWA) over the
+    whole infinity course on the card, at tests/test_baselines.py's
+    envelope, ms per cycle. No kernel runs on phase 31.
 
 Every timed window of the whole-solve kernel (phases 4, 5, 10-12, 16,
 18, 19) reports the median, min and max of WINDOW launches, the SM clock
@@ -911,7 +921,9 @@ def nonfinite_lanes(dev) -> dict:
     (`solve_mega.replay_check`), as its plain version does."""
     # imported here: tools/compare_k1_builds.py loads this file over older
     # trees' packages, which lack these helpers
-    from mpc_ros_tpu_torch.testing import nonfinite_agreement, plant_nonfinite
+    from mpc_ros_tpu_torch.testing import (WITNESS_LANE, nonfinite_agreement,
+                                           next_backward_witness,
+                                           plant_nonfinite)
 
     lanes = [3 + (B_NONFINITE // 10) * i for i in range(10)]
     z0s, coeffs = scenarios(3, B_NONFINITE, dev)
@@ -963,13 +975,36 @@ def nonfinite_lanes(dev) -> dict:
         p = solve_mega.solve_mega_plain(*bad, cfg, resume=resume)
         clean = solve_mega.solve_mega_cuda(*ins, cfg, resume=resume)
         out[name] = nonfinite_agreement(k, p, clean, done_lanes, LANE_TOL)
+    # a lane done on a finite trajectory whose next backward overflows
+    # (`testing.next_backward_witness`): the plain version blends it into
+    # NaN while its block runs, and so must K1, through its probe of that
+    # backward; every output held bit for bit
+    for name, done_frac in (("solve_mega[witness,per_lane]", 1.0),
+                            ("solve_mega[witness,tile]", 0.97)):
+        ins, cfg = next_backward_witness(torch.float32, dev, done_frac)
+        out[name] = bitwise_agreement(solve_mega.solve_mega_cuda(*ins, cfg),
+                                      solve_mega.solve_mega_plain(*ins, cfg),
+                                      WITNESS_LANE)
     emit("nonfinite_lanes", lanes=lanes, k1_lanes=k1_lanes,
-         done_lanes=done_lanes, **out)
+         done_lanes=done_lanes, witness_lane=WITNESS_LANE, **out)
     for name, rec in out.items():
         if not rec["ok"] or not rec["planted_lanes_with_nan"]:
             raise SystemExit(f"{name} on non-finite lanes disagrees with "
                              f"its plain version: {rec}")
     return out
+
+
+def bitwise_agreement(kernel, plain, lane: int) -> dict:
+    """Every output of a kernel equal to its plain version's bit for bit
+    (NaN where the other has NaN, a zero's sign aside), and whether the
+    plain version turned `lane` to NaN; `ok` holds the first."""
+    same = all(torch.equal(k.isnan(), p.isnan())
+               and torch.equal(torch.nan_to_num(k), torch.nan_to_num(p))
+               for k, p in zip(kernel, plain))
+    nan = bool(plain[0][..., lane].isnan().any())
+    return {"ok": same, "bit_for_bit": same,
+            "planted_lanes_with_nan": int(nan),
+            "kernel_lane_nan": bool(kernel[0][..., lane].isnan().any())}
 
 
 def forward_per_iteration(sqp, its: int) -> list:
@@ -2740,6 +2775,70 @@ def fleet_trajectory(dev) -> dict:
     return out
 
 
+# bench.py's compact check: its N=30 knobs at N=48, cap 22
+VERIFY_LONG = dataclasses.replace(PROD, n_steps=48, max_sqp_iters=22)
+
+
+def bench_verify(dev) -> dict:
+    """Phase 30: `bench_cuda.kernel_verify` on the card, K1 held against
+    the XLA lane path at `bench.py --verify`'s gates: plain, blobs and
+    bicycle at N=30, B=1,024, and the compact N=48 schedule (cap 22) at
+    B=4,096 with compaction read engaged from the schedule's counters.
+    Each check's K1 launches counted from 0 around it."""
+    # imported here: tools/compare_k1_builds.py loads this file beside
+    # older trees, which lack bench_cuda.py
+    from bench_cuda import kernel_verify
+
+    p = MPCParams().astype(torch.float32, dev)
+    out = {}
+    for name, cfg, B, variant in (
+            ("plain", PROD, 1024, "plain"), ("blobs", PROD, 1024, "blobs"),
+            ("bicycle", PROD, 1024, "bicycle"),
+            ("compact_n48", VERIFY_LONG, 4096, "plain")):
+        reset_launches()
+        t0 = time.perf_counter()
+        kv = kernel_verify(p, cfg, torch.float32, batch=B, variant=variant,
+                           expect_compact=name == "compact_n48", device=dev)
+        kv["k1_launches"] = solve_mega.launches
+        kv["seconds"] = time.perf_counter() - t0
+        out[name] = kv
+    emit("bench_verify", **out)
+    for name, kv in out.items():
+        if not kv["ok"] or not kv["k1_launches"]:
+            raise SystemExit(f"kernel_verify {name}: K1 deviates from the "
+                             f"XLA lane path on this card: {kv}")
+    return out
+
+
+def compare(dev) -> dict:
+    """Phase 31: `sim.compare.run_one` for the baseline controllers (Pure
+    Pursuit, DWA) over the whole infinity course on the card, at
+    tests/test_baselines.py's envelope: the goal reached, mean geometric
+    error < 0.1 m, max < 0.5 m, every error column finite; ms per cycle
+    on the host clock. The MPC controller's course is phase 24."""
+    from mpc_ros_tpu_torch.sim.compare import run_one
+
+    out = {}
+    for kind in ("pure_pursuit", "dwa"):
+        reset_launches()
+        t0 = time.perf_counter()
+        row = run_one(kind, "infinity", n_steps=LOOP_STEPS, dt=0.1,
+                      ref_vel=0.5, max_cycles=1500, device=dev)
+        wall = time.perf_counter() - t0
+        row.update(ms_per_cycle=wall / max(row["cycles"], 1) * 1e3,
+                   k1_launches=solve_mega.launches)
+        out[kind] = row
+    emit("compare", **out)
+    for kind, row in out.items():
+        cols = [row[k] for k in ("mean_abs_cte", "max_abs_cte",
+                                 "geo_err_mean_m", "geo_err_max_m")]
+        if not (row["reached"] and row["geo_err_mean_m"] < 0.1
+                and row["geo_err_max_m"] < 0.5
+                and all(np.isfinite(c) for c in cols)):
+            raise SystemExit(f"{kind} outside the course envelope: {row}")
+    return out
+
+
 def build_pairs(survey: bool = False) -> set:
     """Every (kernel, variant) pair the phases launch (the survey's alone
     with `survey`): the whole-solve kernel's variants, then the fused
@@ -2759,6 +2858,13 @@ def build_pairs(survey: bool = False) -> set:
         # bicycle, the trajectory tracker's setpoints
         cfgs += [(FLEET, 0, False), (FLEET, 1, False),
                  (FLEET_BICYCLE, 0, False), (FLEET, 0, True)]
+        # `kernel_verify`'s (phase 30): exact trig on the kernel's side
+        exact = dataclasses.replace(PROD, trig="exact")
+        long_exact = dataclasses.replace(VERIFY_LONG, trig="exact")
+        cfgs += [(exact, K_MAIN, False),
+                 (dataclasses.replace(exact, model="bicycle"), 0, False),
+                 (long_exact, 0, False),
+                 (solve_mega.compact_pass1_cfg(long_exact), 0, False)]
     pairs = {("solve_mega", solve_mega.resolve_knobs(
         cfg, torch.float32, n_blobs=k, has_setp=rf).variant)
         for cfg, k, rf in cfgs}
@@ -2829,6 +2935,8 @@ def main(argv) -> None:
     fh = fleet_host(dev)
     fd = fleet_device(dev)
     ft = fleet_trajectory(dev)
+    bench_verify(dev)
+    compare(dev)
     fleet_err = max(fh[k]["k1"]["vs_plain"]["max_du"]
                     for k in ("plain", "bicycle", "blobs"))
     fleet_err = max(fleet_err, fd["k1"]["vs_plain"]["max_du"])

@@ -61,9 +61,10 @@
 // TPU kernel's recompute and blend (reroll_blend), whose 0 * inf gives the
 // plain version's NaN (tests/test_torch_k1_nonfinite.py). A lane that is
 // done keeps its state, unless its trajectory or its last backward's rows
-// were not finite (`dirt`): such a lane goes on blending with upd = 0, as
-// the TPU kernel and the plain version do within their tile, while its
-// block runs (the design's note above the SQP loop). Counted per knot and
+// were not finite (`dirt`), or the backward it would run next is not (the
+// probe): such a lane goes on blending with upd = 0, as the TPU kernel and
+// the plain version do within their tile, while its block runs (the
+// design's note above the SQP loop). Counted per knot and
 // SQP iteration, the scratch traffic is 74 floats at n_ls = 4 (82 at 8):
 // the backward reads s, u, g (12) and writes k, K (16); the line search
 // reads s, u, k, K (24) and writes n_ls x 2 controls; the re-roll reads 2
@@ -646,8 +647,24 @@ __global__ void __launch_bounds__(kTile)
   // not finite runs the body with act = 0 while its block runs: under
   // TILE_EXIT in the lockstep loop, else in a second pass after the first,
   // for as many iterations as the block's longest-running lane ran after
-  // it (the lanes are independent, so the order does not matter).
+  // it (the lanes are independent, so the order does not matter). A done
+  // lane whose `dirt` is finite can still blend: its next backward runs on
+  // the trajectory its last, accepted step left, which no backward has
+  // read, and under the gate and mu that step set, and it may overflow
+  // where the last did not. Its state does not change while its re-roll is
+  // finite, so every later backward is that one, and the lane runs it once
+  // (the probe): where its `chk` is finite the lane keeps its state, and
+  // where it is not, its first iteration after it was done goes on through
+  // the line search and the blend, and the lane is dirty from then on. The
+  // probe costs nothing where a warp-mate still runs, since their
+  // backward is the same code: at the per-thread exit a lane done in the
+  // last iteration probes in the first pass if one does (its verdict kept
+  // for the second pass, which applies it only if the block outlives the
+  // lane), else in the second pass; in the lockstep loop in the first
+  // iteration its block runs after it was done.
   int it_exit = 0;  // the iterations this lane ran before it was done
+  bool probed = false;
+  bool probe_bad = false;  // the probe's `chk` was not finite
   for (int pass = 0; pass < (TILE_EXIT ? 1 : 2); ++pass) {
     int n_it = a.max_iters;
     if (!TILE_EXIT && pass == 1) {
@@ -660,15 +677,32 @@ __global__ void __launch_bounds__(kTile)
     }
     for (int it = 0; it < n_it; ++it) {
       const bool dirty = !(fabsf(dirt) <= kFloatMax);
+      bool probe = false;
       if (TILE_EXIT) {
         // the block decides together; every thread, done or not, gets here
         if (__syncthreads_count(done > 0.5f) >= a.n_done_needed) break;
-        if (!(done < 0.5f) && !dirty) continue;
+        if (!(done < 0.5f) && !dirty) {
+          if (probed) continue;
+          probe = true;
+        }
       } else if (pass == 0) {
-        if (!(done < 0.5f)) break;
-        it_exit = it + 1;
+        // a lane done in the last iteration probes now, beside warp-mates
+        // that still run (the backward is theirs too), and exits
+        const bool mates = __any_sync(__activemask(), done < 0.5f);
+        if (!(done < 0.5f)) {
+          if (probed || dirty || !mates) break;
+          probe = true;
+        } else {
+          it_exit = it + 1;
+        }
       } else if (!dirty) {
-        break;
+        if (!probed) {
+          probe = true;
+        } else if (probe_bad) {
+          dirt = NAN;
+        } else {
+          break;
+        }
       }
       const float act = 1.0f - done;
       // gnorm starts at +inf, so the first iteration is pure GN
@@ -972,6 +1006,17 @@ __global__ void __launch_bounds__(kTile)
             maxf(fabsf(ut0 - clampf(ut0 - Qu0 * inv_wscl, lb0, ub0)),
                  fabsf(ut1 - clampf(ut1 - Qu1 * inv_wscl, lb1, ub1)));
         pg = maxf(pg, pg_t);
+      }
+
+      // the probe: a finite backward leaves the done lane as it is
+      if (probe) {
+        probed = true;
+        probe_bad = !(fabsf(chk) <= kFloatMax);
+        if (!TILE_EXIT && pass == 0) break;
+        if (!probe_bad) {
+          if (TILE_EXIT) continue;
+          break;
+        }
       }
 
       const float pred_decrease = -(dv1 + dv2);

@@ -291,8 +291,10 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None, blobs=None,
     accepted step and keeps its trajectory on a rejected one, with no
     blend; any other running lane blends as below; a done lane is left as
     it is unless its trajectory or its last backward's rows were not
-    finite (or it was resumed done and has run no backward): such a lane
-    blends with act = 0 while its tile of TILE lanes runs (the kernel's
+    finite (or it was resumed done and has run no backward), or the
+    backward it would run next (on the trajectory its last step left,
+    under the gate and mu that step set: the kernel's probe) is not: such
+    a lane blends with act = 0 while its tile of TILE lanes runs (the kernel's
     block: under done_frac < 1 until the tile stops, else while one of its
     lanes is not done), where this version blends every lane while any
     lane of the batch runs."""
@@ -778,11 +780,14 @@ def solve_mega_plain(zT, cT, pp, lb, ub, u0, cfg, resume=None, blobs=None,
         if design:
             # the kernel's paths: the winner's replay on accepted lanes and
             # no change on rejected ones where every backward row is
-            # finite, the blend on the other running lanes and on the done
-            # lanes whose `dirt` is not finite while their tile runs,
+            # finite, the blend on the other running lanes and, while their
+            # tile runs, on the done lanes whose `dirt` is not finite or
+            # whose backward of this iteration (the kernel's probe; the
+            # same every iteration while the lane keeps its state) is not,
             # nothing on the other done lanes
             on_ = act > 0.5
-            runs = on_ | ((done > 0.5) & ~clean & _tile_runs(done, kn))
+            runs = on_ | ((done > 0.5) & (~clean | ~torch.isfinite(chk))
+                          & _tile_runs(done, kn))
             blend = runs & ~torch.isfinite(chk)
             take_new = on_ & ~blend & (upd > 0.5)
 

@@ -1,4 +1,6 @@
 from . import plan_utils
+from .baselines import (DWAConfig, DWAPlanner, PurePursuitConfig,
+                        PurePursuitPlanner)
 from .fsm import DrivingState, check_transition, rotate_command, seed_state
 from .fleet import FleetCycleInfo, FleetPlanner
 from .fleet_device import DeviceFleetPlanner
@@ -23,5 +25,9 @@ __all__ = [
     "TimedTrajectory",
     "TrajectoryTracker",
     "TrajectoryDebug",
+    "PurePursuitConfig",
+    "PurePursuitPlanner",
+    "DWAConfig",
+    "DWAPlanner",
     "plan_utils",
 ]

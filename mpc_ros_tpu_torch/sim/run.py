@@ -25,7 +25,8 @@ def main(argv=None) -> None:
                     default="mpc",
                     help="'mpc': the path-tracking planner; 'trajectory': "
                          "the time-parameterized reference (a moving "
-                         "point); 'pure_pursuit' and 'dwa' are not ported")
+                         "point); 'pure_pursuit' and 'dwa': the baseline "
+                         "controllers of the reference's A/B comparison")
     ap.add_argument("--traj-speed", type=float, default=0.4,
                     help="trajectory mode: reference speed [m/s] used to "
                          "time-parameterize the course")
@@ -60,9 +61,6 @@ def main(argv=None) -> None:
     if args.config is not None:
         _not_ported("--config (config_io, both YAML schemas)",
                     "ROADMAP Queue 1, item 8")
-    if args.controller in ("pure_pursuit", "dwa"):
-        _not_ported(f"--controller {args.controller} (planner/baselines.py)",
-                    "ROADMAP Queue 1, item 4")
     device = "cpu" if args.cpu else "cuda"
 
     plan = get_shape(args.shape)
@@ -111,8 +109,18 @@ def main(argv=None) -> None:
         }
         print(json.dumps(out))
         return
-    planner = MPCPlanner(params=p, solver_cfg=scfg, planner_cfg=pcfg,
-                         device=device)
+    if args.controller == "mpc":
+        planner = MPCPlanner(params=p, solver_cfg=scfg, planner_cfg=pcfg,
+                             device=device)
+    elif args.controller == "pure_pursuit":
+        from ..planner import PurePursuitPlanner
+
+        planner = PurePursuitPlanner(params=p, planner_cfg=pcfg,
+                                     device=device)
+    else:
+        from ..planner import DWAPlanner
+
+        planner = DWAPlanner(params=p, planner_cfg=pcfg, device=device)
     stats = RunStats()
     planner.on_cycle = stats.record_cycle
     res = run_closed_loop(planner, plan, max_cycles=args.max_cycles,

@@ -108,6 +108,35 @@ def plant_nonfinite(named: dict, lanes) -> dict:
     return out
 
 
+# A lane that is done while its finite trajectory leads its next backward
+# to overflow float32 (ROADMAP Queue 3 item 7): in numpy_scenarios(3, 128)
+# at N=12, lane 31 started at v0 = 2.14926252e6 converges in one iteration,
+# and the backward of the trajectory its accepted step leaves has
+# non-finite gains, so the plain version's act = 0 blend turns it to NaN
+# while the other lanes run.
+WITNESS_SEED, WITNESS_LANE, WITNESS_V0 = 3, 31, 2.14926252e6
+
+
+def next_backward_witness(dtype=torch.float32, device=None,
+                          done_frac: float = 1.0):
+    """(zT, cT, pp, lb, ub, u0) and the SolverConfig of the witness: one
+    block of 128 lanes, N=12, cap 12, tol_grad 1e-4, default weights,
+    controls boxed to [-1, 1], a zero cold start."""
+    from .config import MPCParams, SolverConfig
+    from .kernels.pack import pack_params
+
+    B, n = 128, 12
+    z0, coeffs = numpy_scenarios(WITNESS_SEED, B)
+    z0[WITNESS_LANE, 3] = WITNESS_V0
+    lb = torch.full((2, B), -1.0, dtype=dtype, device=device)
+    ins = (torch.tensor(z0.T, dtype=dtype, device=device),
+           torch.tensor(coeffs.T, dtype=dtype, device=device),
+           pack_params(MPCParams(), B, dtype, device), lb, -lb,
+           torch.zeros(n - 1, 2, B, dtype=dtype, device=device))
+    return ins, SolverConfig(n_steps=n, max_sqp_iters=12, tol_grad=1e-4,
+                             done_frac=done_frac)
+
+
 def nonfinite_agreement(kernel, plain, clean, lanes, tol: float) -> dict:
     """A kernel against its plain version on inputs with planted lanes
     (`plant_nonfinite`), output by output (each with the batch last): on

@@ -297,8 +297,6 @@ def test_cli_prints_one_json_line():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--controller", "dwa"], "item 4"),
-    (["--controller", "pure_pursuit"], "item 4"),
     (["--config", "x.yaml"], "item 8"),
     (["--realtime", "--max-cycles", "1"], "item 8")])
 def test_cli_refuses_what_is_not_ported(argv, item):

@@ -25,7 +25,8 @@ from mpc_ros_tpu_torch.solver.batch_lane import (LaneSQP, batch_solve_lane,
                                                  lane_inputs,
                                                  solve_two_kernel,
                                                  two_kernel_stages)
-from mpc_ros_tpu_torch.testing import (nonfinite_agreement, numpy_blobs,
+from mpc_ros_tpu_torch.testing import (WITNESS_LANE, next_backward_witness,
+                                       nonfinite_agreement, numpy_blobs,
                                        numpy_refs, plant_nonfinite)
 from mpc_ros_tpu_torch.verify import parity_gates
 
@@ -282,6 +283,21 @@ def test_lanes_done_before_the_others_match_plain(dev, done_frac, model):
     clean = solve_mega.solve_mega_cuda(*ins, cfg, resume=resume)
     rec = nonfinite_agreement(k, p, clean, lanes, 1e-3)
     assert rec["ok"] and rec["planted_lanes_with_nan"] >= 3, rec
+
+
+@pytest.mark.parametrize("done_frac", [1.0, 0.97], ids=["per_lane", "tile"])
+def test_next_backward_witness_matches_plain(dev, done_frac):
+    """`testing.next_backward_witness`: a lane done on a finite trajectory
+    whose next backward overflows; the plain version blends it into NaN,
+    and the kernel's probe of that backward must too, every output bit for
+    bit."""
+    ins, cfg = next_backward_witness(torch.float32, dev, done_frac)
+    k = solve_mega.solve_mega_cuda(*ins, cfg)
+    p = solve_mega.solve_mega_plain(*ins, cfg)
+    for a, b in zip(k, p):
+        assert torch.equal(a.isnan(), b.isnan())
+        assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+    assert bool(p[0][..., WITNESS_LANE].isnan().any())
 
 
 def _nonfinite_solve(dev, cfg, with_extras=False):
@@ -562,7 +578,7 @@ def test_remaining_variants_match_plain(dev, variant):
 
 
 def test_builds_have_no_spills_and_fit_shared_memory(dev):
-    """The 15 (kernel, variant) pairs chip_smoke.py builds, and the line
+    """The 17 (kernel, variant) pairs chip_smoke.py builds, and the line
     search at n_alpha = 3, build for sm_90a with no spills; each K1
     variant's knot ring fits a block's shared memory (227 KB) with at
     least two blocks resident per SM, and the line search's with three."""
@@ -571,11 +587,11 @@ def test_builds_have_no_spills_and_fit_shared_memory(dev):
     import chip_smoke
     from mpc_ros_tpu_torch.kernels import _build
 
-    # every (kernel, variant) pair chip_smoke.py builds: the 13 variants of
+    # every (kernel, variant) pair chip_smoke.py builds: the 15 variants of
     # the whole-solve kernel (n_ls, ddp, fast, adaptive, tile_exit, blobs,
     # setp, bicycle), the fused backward and the line search
     pairs = sorted(chip_smoke.build_pairs())
-    assert len(pairs) == 15
+    assert len(pairs) == 17
     builds = _build.build_many(pairs + [("forward", (3,))])
     for key, (_, lines) in builds.items():
         spills = [int(n) for ln in lines

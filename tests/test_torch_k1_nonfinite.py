@@ -34,7 +34,8 @@ import torch
 import test_torch_reroll
 
 from mpc_ros_tpu_torch.kernels import solve_mega
-from mpc_ros_tpu_torch.testing import (plant_nonfinite, torch_threads)
+from mpc_ros_tpu_torch.testing import (WITNESS_LANE, next_backward_witness,
+                                       plant_nonfinite, torch_threads)
 from test_torch_reroll import B, _case
 
 LANES = list(range(5, B, 23))
@@ -137,4 +138,33 @@ def test_design_equals_plain_on_lanes_done_before_the_others(
     assert bool(plain[0][..., [5, 40, 100]].isnan().any(dim=0).all())
     assert int(plain[4].max()) >= 2
     others = [i for i in range(Bt) if i not in lanes]
+    assert bool(plain[0][..., others].isfinite().all())
+
+
+@pytest.mark.parametrize("done_frac", [1.0, 0.97], ids=["per_lane", "tile"])
+def test_design_equals_plain_on_a_lane_whose_next_backward_overflows(
+        done_frac):
+    """The witness of `testing.next_backward_witness`: a lane done after
+    one iteration on a finite trajectory, whose last backward was finite
+    but whose next one, on the trajectory its accepted step left, is not.
+    The plain version blends it into NaN while the other lanes of its
+    block run; so does the design, through the kernel's probe of that
+    backward (without it, the lane's `dirt` is finite and it kept its
+    state)."""
+    ins, cfg = next_backward_witness(torch.float32, done_frac=done_frac)
+    lane = WITNESS_LANE
+    # after the one iteration it runs, the lane is done on a finite
+    # trajectory, and no gain it computed was non-finite
+    one = solve_mega.solve_mega_plain(
+        *ins, dataclasses.replace(cfg, max_sqp_iters=1), design=True)
+    assert float(one[7][lane]) == 1.0 and float(one[3][lane]) == 1.0
+    assert bool(one[0][..., lane].isfinite().all())
+    assert bool(one[1][..., lane].isfinite().all())
+    plain = solve_mega.solve_mega_plain(*ins, cfg)
+    design = solve_mega.solve_mega_plain(*ins, cfg, design=True)
+    for a, b in zip(design, plain):
+        assert _equal(a, b)
+    assert float(plain[4][lane]) == 1.0 and int(plain[4].max()) >= 2
+    assert bool(plain[0][..., lane].isnan().any())
+    others = [i for i in range(solve_mega.TILE) if i != lane]
     assert bool(plain[0][..., others].isfinite().all())
