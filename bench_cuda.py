@@ -32,8 +32,11 @@ Where it differs from `bench.py`:
   * `kernel_verify` holds K1 against the port's XLA lane path on seeded
     numpy scenarios (`testing.numpy_scenarios`, `numpy_blobs`) and reads
     whether the compact schedule engaged from the schedule's own counters;
-  * `--obstacles-grid` and `--grid-sampling` wait for the grid obstacle
-    maps (ROADMAP Queue 1, item 5) and raise.
+  * `--obstacles-grid` (bench.py's grid ensemble: B=4,096, one Gaussian
+    costmap per scenario, cap 30, `--grid-sampling` spline_coeff by
+    default) runs on the XLA lane path on the card, as the JAX package
+    runs grid maps off its kernels; the line adds `grid_sampling` and
+    `max_sqp_iters`.
 """
 
 from __future__ import annotations
@@ -207,12 +210,16 @@ def parse_args(argv=None):
                     help="per-scenario Gaussian-blob obstacles (K1's blob "
                          "variant)")
     ap.add_argument("--obstacles-grid", action="store_true",
-                    help="grid-costmap obstacles (not ported)")
+                    help="per-scenario grid-costmap obstacle penalties (the "
+                         "XLA lane path: grid maps take no kernel)")
     ap.add_argument("--grid-sampling",
                     choices=["spline", "spline_coeff", "bilinear"],
-                    default=None,
-                    help="costmap reconstruction for --obstacles-grid (not "
-                         "ported)")
+                    default="spline_coeff",
+                    help="costmap reconstruction for --obstacles-grid: "
+                         "spline_coeff = the C1 quadratic B-spline from "
+                         "per-cell coefficient planes, spline = the 9-tap "
+                         "stencil, bilinear = costmap_2d's C0 "
+                         "interpolation")
     ap.add_argument("--sweep", action="store_true",
                     help="Monte-Carlo tuning-sweep metric: 8 weight "
                          "candidates x 16,384 scenarios in one batch")
@@ -269,12 +276,8 @@ def main(argv=None) -> None:
     from mpc_ros_tpu_torch.engine import batch_solve, make_random_scenarios
     from mpc_ros_tpu_torch.kernels import solve_mega
     from mpc_ros_tpu_torch.planner.tracking import resolve_device
-    from mpc_ros_tpu_torch.solver.batch_lane import (_not_ported,
-                                                     batch_solve_lane)
+    from mpc_ros_tpu_torch.solver.batch_lane import batch_solve_lane
 
-    if args.obstacles_grid or args.grid_sampling is not None:
-        _not_ported("--obstacles-grid / --grid-sampling (grid-costmap "
-                    "obstacles)", "ROADMAP Queue 1, item 5")
     if args.quick:
         dev = torch.device("cpu")
         device_name = "cpu"
@@ -291,16 +294,18 @@ def main(argv=None) -> None:
             torch.cuda.synchronize()
 
     # the plain throughput metric runs at 512k; serving holds 10 cycles of
-    # state and the obstacle ensemble was characterized at 128k
-    plain = not (args.serving or args.obstacles or args.sweep)
+    # state, the obstacle ensemble was characterized at 128k and the grid
+    # ensemble at 4k
+    plain = not (args.serving or args.obstacles or args.obstacles_grid
+                 or args.sweep)
     batch = args.batch or (256 if args.quick else 524288 if plain
-                           else 131072)
+                           else 4096 if args.obstacles_grid else 131072)
     n_steps = args.n_steps
     # the horizon- and ensemble-aware cap of bench.py: 12 at N=30 with
     # DDP, a 30-iteration floor for the obstacle ensemble (and the bicycle
     # under GN), 0.45 N past N=32
-    hard = args.obstacles or args.model == "bicycle"
-    if args.ddp and not args.obstacles:
+    hard = args.obstacles or args.obstacles_grid or args.model == "bicycle"
+    if args.ddp and not (args.obstacles or args.obstacles_grid):
         hard = False
     max_iters = args.iters or max(12 if not hard else 30,
                                   round(0.45 * n_steps) if n_steps > 32
@@ -604,6 +609,19 @@ def main(argv=None) -> None:
 
         def solve_fn():
             return batch_solve_lane(z0s, coeffs, p, cfg, blobs=blobs)
+    elif args.obstacles_grid:
+        # one Gaussian costmap per scenario at bench.py's random spot
+        # ahead; grid maps run on the XLA lane path whatever `backward`
+        # says
+        from mpc_ros_tpu_torch.models.obstacles import gaussian_blob_map
+
+        centres = blob_centres(1, batch, dtype, dev)
+        omaps = gaussian_blob_map((centres[:, 0], centres[:, 1]), sigma=0.3,
+                                  weight=100.0, dtype=dtype,
+                                  sampling=args.grid_sampling, device=dev)
+
+        def solve_fn():
+            return batch_solve_lane(z0s, coeffs, p, cfg, omaps=omaps)
     elif args.engine == "lane":
         if args.smart_init:
             from mpc_ros_tpu_torch.engine import analytic_u_init
@@ -713,7 +731,10 @@ def main(argv=None) -> None:
     solve_st = lat_stats(solve_ls)
     cycle_st = lat_stats(cycle_ls)
 
-    suffix = "_obstacles" if args.obstacles else ""
+    suffix = ("_obstacles" if args.obstacles
+              else "_obstacles_grid" if args.obstacles_grid else "")
+    if args.obstacles_grid and args.grid_sampling != "spline":
+        suffix += f"_{args.grid_sampling}"
     suffix += "" if args.engine == "lane" or suffix else "_vmap"
     suffix += "" if args.model == "diff_drive" else f"_{args.model}"
     suffix += "_presorted" if args.presort else ""
@@ -752,9 +773,13 @@ def main(argv=None) -> None:
         "unconverged_ppm": int(round(1e6 * (1.0 - conv))),
         "k1_launches_per_solve": launches,
     }
+    if args.obstacles_grid:
+        out.update(grid_sampling=args.grid_sampling,
+                   max_sqp_iters=cfg.max_sqp_iters)
     # K1 against the XLA lane path on the card, every run of the main path
     # (plain N=30 and the compact N=48 schedule)
-    if (args.engine == "lane" and not args.quick and not args.obstacles
+    if (args.engine == "lane" and not args.quick
+            and not (args.obstacles or args.obstacles_grid)
             and dev.type == "cuda"):
         out["kernel_verify"] = kernel_verify(p, cfg, dtype, device=dev)
         out["kernel_verify_compact_n48"] = kernel_verify(
@@ -767,8 +792,9 @@ def main(argv=None) -> None:
                                                megakernel_accounting,
                                                solve_accounting)
 
-        mega = cfg.backward == "mega" or (cfg.backward == "auto"
-                                          and dev.type == "cuda")
+        mega = (not args.obstacles_grid) and (
+            cfg.backward == "mega" or (cfg.backward == "auto"
+                                       and dev.type == "cuda"))
         make = megakernel_accounting if mega else solve_accounting
         kw = {"ddp": cfg.ddp} if mega else {}
         acct = make(batch, n_steps - 1, n_alpha=cfg.ls_iters,

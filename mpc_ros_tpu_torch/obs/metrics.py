@@ -1,8 +1,8 @@
 """Per-solve cost breakdown and run-level statistics (counterpart of
 `mpc_ros_tpu/obs/metrics.py`): the FG_eval objective split by term, read
 from any solved trajectory, and an aggregator of a closed-loop run's
-per-cycle latency, iterations and convergence. The phase timers and the
-checkpoints of `mpc_ros_tpu/obs` are ROADMAP Queue 1 item 8."""
+per-cycle latency, iterations and convergence. The phase timers are in
+`timers.py`, the checkpoints in `checkpoint.py`."""
 
 from __future__ import annotations
 

@@ -5,6 +5,9 @@ from .fsm import DrivingState, check_transition, rotate_command, seed_state
 from .fleet import FleetCycleInfo, FleetPlanner
 from .fleet_device import DeviceFleetPlanner
 from .planner import CycleInfo, MPCPlanner
+from .recovery import (RecoveryConfig, RecoveryState, RecoveryStats,
+                       RecoverySupervisor)
+from .safety import SafetyConfig, SafetyMonitor, SafetyStatus
 from .tracking import TrackingController, TrackingDebug
 from .trajectory import (FleetTrajectoryTracker, TimedTrajectory,
                          TrajectoryDebug, TrajectoryTracker)
@@ -18,6 +21,13 @@ __all__ = [
     "CycleInfo",
     "TrackingController",
     "TrackingDebug",
+    "SafetyMonitor",
+    "SafetyConfig",
+    "SafetyStatus",
+    "RecoverySupervisor",
+    "RecoveryConfig",
+    "RecoveryState",
+    "RecoveryStats",
     "FleetPlanner",
     "DeviceFleetPlanner",
     "FleetCycleInfo",

@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 from ..config import MPCParams, PlannerConfig
-from ..solver.batch_lane import _not_ported
+from ..models.obstacles import bilinear_sample
+from ..ops.linspace import window as _window
 from . import plan_utils
 from .planner import MPCPlanner
 
@@ -160,29 +161,6 @@ class DWAConfig:
     w_turn: float = 0.02        # angular-effort tiebreak (prevents idle spin)
 
 
-def _window(center, limit, span: float, n: int):
-    """`center + jnp.linspace(-limit * span, limit * span, n)` in float32,
-    rounded as XLA compiles the JAX evaluator on the CPU, where the JAX
-    package's tests run it: the division by n - 1 folded into a product
-    with r = fl(1 / (n - 1)) and the span into the stop term, knot k < n - 1
-    the fused multiply-add k (limit fl(span r)) + fl((-limit span)(1 - k r))
-    (at k = 1, where the product by k folds away, (-limit span)(1 - r) +
-    limit fl(span r) fused instead), then limit span. A fused multiply-add
-    of float32 operands is exact in float64 but for its one rounding."""
-    div = n - 1
-    f32, f64 = limit.dtype, torch.float64
-    r = torch.tensor(1.0 / div, dtype=f32, device=limit.device)
-    span_r = torch.tensor(span, dtype=f32, device=limit.device) * r
-    k = torch.arange(div, dtype=f32, device=limit.device)
-    start = -limit * span
-    one = 1 - k * r
-    stop_k = limit * span_r
-    fused_k = (k.to(f64) * stop_k.to(f64) + (start * one).to(f64)).to(f32)
-    fused_1 = (start.to(f64) * one.to(f64) + stop_k.to(f64)).to(f32)
-    out = torch.where(k == 1, fused_1, fused_k)
-    return center + torch.cat([out, (limit * span).reshape(1)])
-
-
 def _dwa_eval(cfg: DWAConfig, v0, w0, lim, plan_xy, goal_xy, omap=None,
               blobs=None):
     """Score the dynamic window and return the winner's (v, w), 0-d
@@ -192,11 +170,10 @@ def _dwa_eval(cfg: DWAConfig, v0, w0, lim, plan_xy, goal_xy, omap=None,
     x(t) = (v/w)sin(wt), y(t) = (v/w)(1-cos(wt)) — and scored in one batch;
     `argmax` picks the first best on the device. `lim` = [max_accel,
     max_ang_accel_proxy, max_angvel, ref_v, min_v]; `plan_xy` (P, 2) and
-    `goal_xy` (2,) in the robot frame; `blobs` a `GaussianObstacles` with
-    (K,) leaves in the robot frame."""
-    if omap is not None:
-        _not_ported("DWA grid-costmap clearance (ObstacleMap sampling)",
-                    "ROADMAP Queue 1, item 5")
+    `goal_xy` (2,) in the robot frame; `omap` a robot-frame
+    `ObstacleMap` (sampled bilinearly, as costmap_2d does) and `blobs` a
+    `GaussianObstacles` with (K,) leaves in the robot frame, each scored
+    for clearance."""
     max_thr, max_ang_acc, max_w, ref_v, min_v = (lim[i] for i in range(5))
     vs = _window(v0, max_thr, cfg.window_dt, cfg.nv)
     vs = torch.clamp(vs, min_v, ref_v)
@@ -231,16 +208,26 @@ def _dwa_eval(cfg: DWAConfig, v0, w0, lim, plan_xy, goal_xy, omap=None,
 
     score = -(cfg.w_path * path_pen + cfg.w_goal * goal_pen
               + cfg.w_vel * vel_pen + cfg.w_turn * torch.abs(w))
+
+    def apply_clearance(oc, score):
+        """oc (C, S): the obstacle cost along each rollout; colliding
+        candidates vetoed, the rest biased by mean clearance."""
+        colliding = torch.amax(oc, dim=1) > cfg.veto_cost
+        return (score - cfg.w_clear * torch.mean(oc, dim=1)
+                - torch.where(colliding, 1e6, 0.0))
+
+    if omap is not None:
+        oc = omap.weight * bilinear_sample(omap.grid, omap.origin,
+                                           omap.resolution,
+                                           torch.stack([x, y], -1))
+        score = apply_clearance(oc, score)
     if blobs is not None:
-        # oc (C, S): the blob penalty along each rollout; colliding
-        # candidates vetoed, the rest biased by mean clearance
+        # per-point blob penalty, summed over the blobs
         bdx = x[:, :, None] - blobs.cx
         bdy = y[:, :, None] - blobs.cy
         oc = torch.sum(blobs.w * torch.exp(
             -(bdx * bdx + bdy * bdy) * blobs.gamma), dim=-1)
-        colliding = torch.amax(oc, dim=1) > cfg.veto_cost
-        score = (score - cfg.w_clear * torch.mean(oc, dim=1)
-                 - torch.where(colliding, 1e6, 0.0))
+        score = apply_clearance(oc, score)
     best = torch.argmax(score)
     return v[best], w[best]
 
@@ -254,8 +241,8 @@ class DWAPlanner(MPCPlanner):
     local goal, speed tracking, and (optionally) obstacle clearance. The
     whole window is one batch of ops on the planner's device. World-frame
     blobs come through `set_obstacles` (moved into the robot frame each
-    cycle); the grid costmap route (`tracker.obstacle_map`) waits for the
-    grid obstacle maps."""
+    cycle); a robot-frame grid costmap through `tracker.obstacle_map`
+    (moved to the device once per map it is set to)."""
 
     def __init__(self, params: MPCParams = MPCParams(),
                  planner_cfg: PlannerConfig = PlannerConfig(),
@@ -271,6 +258,8 @@ class DWAPlanner(MPCPlanner):
         t.w = 0.0
         t.obstacle_map = None
         t.obstacles = None
+        # the costmap last set and its copy on the device in float32
+        self._omap_src, self._omap_dev = None, None
         return t
 
     def _tracking_command(self, pose, feedback_vel, cut):
@@ -302,6 +291,10 @@ class DWAPlanner(MPCPlanner):
         blobs = self.tracker.obstacles
         dev = self.device
         f32 = torch.float32
+        omap = self.tracker.obstacle_map
+        if omap is not self._omap_src:
+            self._omap_src = omap
+            self._omap_dev = None if omap is None else omap.to(f32, dev)
         if blobs is not None:
             blobs = dataclasses.replace(blobs, **{
                 k: getattr(blobs, k).to(dev, f32)
@@ -318,7 +311,7 @@ class DWAPlanner(MPCPlanner):
         # speed is stale and the window would span dynamically infeasible
         # candidates (the guarantee DWA is named after)
         v_cmd, w_cmd = _dwa_eval(cfg, flat[5], flat[6], flat[:5], pts_d,
-                                 pts_d[-1], omap=self.tracker.obstacle_map,
+                                 pts_d[-1], omap=self._omap_dev,
                                  blobs=blobs)
         v_cmd, w_cmd = torch.stack([v_cmd, w_cmd]).tolist()
         self.tracker.speed = v_cmd

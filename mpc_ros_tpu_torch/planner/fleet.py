@@ -22,8 +22,8 @@ device, so a serving loop can overlap the next cycle's host pipeline with
 the solve in flight.
 
 The planner runs on the card unless built with `device="cpu"`; without a
-card it raises. Grid costmaps (`set_costmaps`) wait for ROADMAP Queue 1
-item 5, a device mesh (`mesh=`) for item 7.
+card it raises. Grid costmaps (`set_costmaps`) are fitted to blobs on the
+device; a device mesh (`mesh=`) waits for ROADMAP Queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -36,7 +36,8 @@ import torch
 
 from ..config import MPCParams, PlannerConfig, SolverConfig
 from ..models.base import get_model
-from ..models.obstacles import GaussianObstacles
+from ..models.obstacles import (GaussianObstacles, ObstacleMap,
+                                fit_gaussians_to_maps)
 from ..solver.batch_lane import _not_ported, batch_solve_lane
 from .fsm import DrivingState
 from .tracking import _host_twin, resolve_device
@@ -209,13 +210,45 @@ class FleetPlanner:
             for f in ("cx", "cy", "gamma", "w")))
 
     def set_costmaps(self, omaps, n_blobs: int = 4) -> None:
-        """World-frame costmaps fitted to blobs wait for the grid obstacle
-        maps; None clears the obstacles."""
+        """World-frame per-robot costmap snapshots fitted to blobs: the
+        production costmap route. `omaps` is an `ObstacleMap` with leaves
+        (B, ...) (grid (B, H, W), origin (B, 2) in world coordinates,
+        resolution and weight (B,)), numpy or tensors, or None to clear.
+        Host leaves go up in one pinned non-blocking copy; the greedy fit
+        (`fit_gaussians_to_maps`) runs on the planner's device, and every
+        cycle then solves with the blobs (on the card, K1's blob
+        variant)."""
         if omaps is None:
             self.set_obstacles(None)
             return
-        _not_ported("FleetPlanner.set_costmaps (grid costmaps fitted to "
-                    "blobs)", "ROADMAP Queue 1, item 5")
+        self.set_obstacles(fit_gaussians_to_maps(self._upload_maps(omaps),
+                                                 n_blobs))
+
+    def _upload_maps(self, omaps) -> ObstacleMap:
+        """A batch of maps on the planner's device in its dtype: leaves
+        already there are cast there; host leaves are packed into one
+        (B, H*W + 4) array and copied once."""
+        grid = omaps.grid
+        if isinstance(grid, torch.Tensor) and grid.device == self.device:
+            return omaps.to(self.dtype)
+        nd = numpy_dtype(self.dtype)
+
+        def host(a):
+            a = a.cpu() if isinstance(a, torch.Tensor) else a
+            return np.asarray(a, nd).reshape(B, -1)
+
+        B, H, W = np.shape(grid)
+        g = host(grid)
+
+        # packed in the upload's dtype (the cast made once, on the host)
+        flat = upload(np.concatenate(
+            [g, host(omaps.origin), host(omaps.resolution),
+             host(omaps.weight)], axis=1), self.dtype, self.device)
+        return ObstacleMap(grid=flat[:, :H * W].reshape(B, H, W),
+                           origin=flat[:, H * W:H * W + 2],
+                           resolution=flat[:, H * W + 2],
+                           weight=flat[:, H * W + 3],
+                           sampling=omaps.sampling)
 
     def set_plans(self, plans: Sequence[np.ndarray],
                   poses: np.ndarray) -> np.ndarray:

@@ -23,7 +23,7 @@ import torch
 
 from ..config import MPCParams, PlannerConfig, SolverConfig
 from ..models.base import get_model
-from ..solver.batch_lane import _not_ported
+from ..models.obstacles import GaussianObstacles, fit_gaussians_to_map
 from . import plan_utils
 from .fsm import (DrivingState, check_transition, normalize_angle,
                   rotate_command, seed_state)
@@ -84,10 +84,18 @@ class MPCPlanner:
 
     def set_costmap(self, omap, n_blobs: int = 4,
                     refine: bool = False) -> None:
-        """The costmap route (a grid fitted to blobs) waits for the grid
-        obstacle maps."""
-        _not_ported("MPCPlanner.set_costmap (grid costmaps fitted to blobs)",
-                    "ROADMAP Queue 1, item 5")
+        """A world-frame costmap snapshot (`ObstacleMap`) fitted to
+        `n_blobs` Gaussian blobs on the host (`fit_gaussians_to_map`; with
+        `refine` the scipy least-squares refinement, at map-update rate
+        only) and installed as the world obstacles, on the planner's
+        device: the single-robot production costmap route. None clears."""
+        if omap is None:
+            self.set_obstacles(None)
+            return
+        blobs = fit_gaussians_to_map(omap, n_blobs, refine=refine)
+        self.set_obstacles(GaussianObstacles(*(
+            getattr(blobs, f).to(self.device, self.dtype)
+            for f in ("cx", "cy", "gamma", "w"))))
 
     def _make_tracker(self):
         """The Tracking state's controller."""

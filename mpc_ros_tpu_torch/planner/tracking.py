@@ -77,16 +77,17 @@ def pack_result(r: SolveResult) -> torch.Tensor:
 
 
 def _cycle(cfg: SolverConfig, inp: torch.Tensor, prev_us: torch.Tensor,
-           p: MPCParams, blobs=None):
+           p: MPCParams, blobs=None, omap=None):
     """One tracking solve on the device: inp (6 + C + 1,) = state,
     coefficients and ref_vel; the warm start is the previous optimum
     shifted by one knot (a zero carry is the cold start: the warm start
-    clips to the same zeros). Returns (the packed result, the new carry)."""
+    clips to the same zeros). `blobs` and `omap` are the robot-frame
+    obstacles. Returns (the packed result, the new carry)."""
     nc = cfg.n_coeffs
     p = dataclasses.replace(p, ref_vel=inp[6 + nc])
     u_init = torch.cat([prev_us[1:], prev_us[-1:]])
     r = ilqr.solve(inp[:6], inp[6: 6 + nc], p, cfg, u_init=u_init,
-                   blobs=blobs)
+                   omap=omap, blobs=blobs)
     return pack_result(r), r.us
 
 
@@ -123,9 +124,11 @@ class TrackingController:
         # the previous optimum, kept on the device between cycles
         self._warm_dev = None
         # robot-frame GaussianObstacles (leaves (K,)), set per cycle by
-        # the embedder (MPCPlanner); grid costmaps are ROADMAP Queue 1
-        # item 5
+        # the embedder (MPCPlanner)
         self.obstacles = None
+        # the robot-frame local costmap (`obstacle_map`), on the device
+        self._omap = None
+        self._omap_src = None
 
     def reset(self) -> None:
         self.w = 0.0
@@ -134,6 +137,22 @@ class TrackingController:
         self.ref_vel = float(self._np_params.ref_vel)
         self._warm_us = None
         self._warm_dev = None
+
+    @property
+    def obstacle_map(self):
+        """The robot-frame local costmap (`ObstacleMap`) every cycle's
+        solve samples, or None."""
+        return self._omap
+
+    @obstacle_map.setter
+    def obstacle_map(self, omap) -> None:
+        # moved to the controller's device and dtype (and spline_coeff
+        # planes derived) once per map update; the same map set again is
+        # not copied again
+        if omap is not self._omap_src:
+            self._omap_src = omap
+            self._omap = (None if omap is None
+                          else omap.for_solver(self.dtype, self.device))
 
     def update_params(self, params: MPCParams) -> None:
         """Hot-reload the solver parameters: new leaves on the device and a
@@ -244,7 +263,7 @@ class TrackingController:
                                          dtype=self.dtype, device=self.device)
         flat, self._warm_dev = _cycle(
             cfg, torch.tensor(inp, dtype=self.dtype, device=self.device),
-            self._warm_dev, self.params, self.obstacles)
+            self._warm_dev, self.params, self.obstacles, self._omap)
         res = unpack_cycle(flat.cpu().numpy().astype(float), cfg)
         self._warm_us = res.us
 

@@ -31,7 +31,9 @@ def main(argv=None) -> None:
                     help="trajectory mode: reference speed [m/s] used to "
                          "time-parameterize the course")
     ap.add_argument("--config", type=str, default=None,
-                    help="YAML config file (not ported)")
+                    help="YAML config file (canonical nested schema or the "
+                         "reference's flat rosparam schema, see "
+                         "config_io.py); flags below override it")
     ap.add_argument("--model", choices=["diff_drive", "bicycle"],
                     default=None,
                     help="vehicle family (mpc controller only)")
@@ -54,25 +56,28 @@ def main(argv=None) -> None:
     from ..config import MPCParams, PlannerConfig, SolverConfig
     from ..obs import RunStats
     from ..planner import MPCPlanner
-    from ..solver.batch_lane import _not_ported
     from .shapes import get_shape
     from .simulator import run_closed_loop
 
-    if args.config is not None:
-        _not_ported("--config (config_io, both YAML schemas)",
-                    "ROADMAP Queue 1, item 8")
     device = "cpu" if args.cpu else "cuda"
 
     plan = get_shape(args.shape)
-    # the CLI's defaults, tuned for the built-in courses
-    p = MPCParams(max_angvel=1.5, w_cte=300.0, w_angvel_d=10.0,
-                  w_accel_d=10.0)
-    scfg = SolverConfig(n_steps=20)
-    pcfg = PlannerConfig(local_plan_length=2.5)
-    if args.model == "bicycle":
-        # the courses reach curvature ~1.6-2.4 1/m: steering authority to
-        # match (max_steer / lf = 2.4)
-        p = dataclasses.replace(p, lf=0.25, max_steer=0.6)
+    if args.config is not None:
+        from ..config_io import load_config
+
+        p, scfg, pcfg = load_config(args.config)
+    else:
+        # the CLI's defaults, tuned for the built-in courses (a config
+        # file carries its own values)
+        p = MPCParams(max_angvel=1.5, w_cte=300.0, w_angvel_d=10.0,
+                      w_accel_d=10.0)
+        scfg = SolverConfig(n_steps=20)
+        pcfg = PlannerConfig(local_plan_length=2.5)
+        if args.model == "bicycle":
+            # the courses reach curvature ~1.6-2.4 1/m: steering authority
+            # to match (max_steer / lf = 2.4)
+            p = dataclasses.replace(p, lf=0.25, max_steer=0.6)
+    # explicit flags override whichever source supplied the base config
     over = {k: v for k, v in (("dt", args.dt), ("ref_vel", args.ref_vel),
                               ("w_cte", args.w_cte)) if v is not None}
     p = dataclasses.replace(p, **over)

@@ -7,7 +7,9 @@ batch-last ((T, 8, 8, B) and so on), so the kernels read coalesced rows.
 
 Three routes, chosen by the JAX package's dispatch rule. `kernels_ok` is
 float32, B % 128 == 0, a lane-specialized family ("diff_drive" or
-"bicycle") and no grid obstacle maps:
+"bicycle") and no grid obstacle maps (`omaps`: grid sampling was never a
+kernel in the JAX package, so grid maps take the XLA lane path whatever
+`backward` says; the production costmap route fits blobs instead):
 
 * the whole-solve kernel (`kernels/solve_mega.py`, K1) for
   `backward="mega"`, or `"auto"` on CUDA tensors (the counterpart of
@@ -19,16 +21,15 @@ float32, B % 128 == 0, a lane-specialized family ("diff_drive" or
   diff-drive and no blobs only — with blobs or the bicycle, "pallas" runs
   the XLA lane path;
 * the XLA lane path for everything else — `"xla"`, `"auto"` on CPU
-  tensors, f64, B % 128 != 0 — the same loop with the plain PyTorch
-  stages `_backward_bl` and `_forward_multi_alpha_bl`, blob terms and the
-  bicycle rows included.
+  tensors, f64, B % 128 != 0, grid maps — the same loop with the plain
+  PyTorch stages `_backward_bl` and `_forward_multi_alpha_bl`, grid and
+  blob terms and the bicycle rows included.
 
 CPU tensors run each kernel's plain version, CUDA tensors launch the
 kernel. Per-knot setpoints (`refs`) off the kernel route run on the
 registry-generic engine (`engine.batch_solve`, the single-scenario
-solver batched), as the JAX package does; grid obstacle maps need
-`ObstacleMap` (ROADMAP Queue 1, item 5) and raise NotImplementedError
-naming the item.
+solver batched), as the JAX package does; with grid maps they raise its
+ValueError.
 """
 
 from __future__ import annotations
@@ -46,7 +47,8 @@ from ..kernels.pack import pack_params
 from ..kernels.solve_mega import solve_mega_scheduled
 from ..models.base import get_model
 from ..models.costs import scaled_solver_knobs
-from ..models.obstacles import blob_concave_bl, blob_terms_bl
+from ..models.obstacles import (blob_concave_bl, blob_terms_bl,
+                                obstacle_cost_grad_bl, obstacle_curv_bl)
 from .types import SolveResult
 
 # active-set enumeration order of the XLA box QP
@@ -324,8 +326,6 @@ def _backward_bl(ss, us, coeffs, dt, sign, p, V_s, V_ss, lb, ub, mu,
     join each stage's cost expansion; under gated DDP the concave -2 g v I
     part is added back on the lanes past the gate. Returns ks (T,2,B),
     Ks (T,2,8,B), dV1, dV2, pg (B,)."""
-    if omaps is not None:
-        _not_ported("grid obstacle maps (omaps)", "ROADMAP Queue 1, item 5")
     dtype = ss.dtype
     dev = ss.device
     T = us.shape[0]
@@ -337,6 +337,15 @@ def _backward_bl(ss, us, coeffs, dt, sign, p, V_s, V_ss, lb, ub, mu,
     A, Bm, l_s, l_u, l_ss, l_uu, l_us = _stage_linexp_bl(
         ss[:-1].movedim(0, 1), us.movedim(0, 1), coeffs, dt, sign,
         rate[:, None], p, dtype, model)
+    if omaps is not None:
+        _, gx, gy = obstacle_cost_grad_bl(omaps, ss[:-1, 0], ss[:-1, 1])
+        l_s[:, 0] += gx
+        l_s[:, 1] += gy
+        # the PSD second-difference curvature: without it the grid term
+        # has no stiffness and hard lanes die in rejected-step spirals
+        hxx, hyy = obstacle_curv_bl(omaps, ss[:-1, 0], ss[:-1, 1])
+        l_ss[:, 0, 0] += hxx
+        l_ss[:, 1, 1] += hyy
     if blobs is not None:
         x_t, y_t = ss[:-1, 0], ss[:-1, 1]
         _, gx, gy, hxx, hxy, hyy = blob_terms_bl(*blobs, x_t, y_t)
@@ -497,25 +506,28 @@ class LaneSQP:
     `two_kernel` is None for the XLA lane stages, or a (backward, forward)
     pair from `two_kernel_stages` for the two-kernel route, whose knobs
     resolve with `scale_adaptive=False` (its pg is not weight-scale
-    normalized); that route takes neither blobs nor the bicycle. `blobs`
-    (a `GaussianObstacles` with (B, K) leaves) adds the blob penalty to
-    every knot's cost, its expansion to the backward and the terminal
-    value, and resolves the gate and the mu floor with obstacles. The loop
+    normalized); that route takes neither blobs, grid maps nor the
+    bicycle. `blobs` (a `GaussianObstacles` with (B, K) leaves) and
+    `omaps` (an `ObstacleMap` with leaves (B, ...)) add their penalty to
+    every knot's cost, their expansion to the backward and the terminal
+    value, and resolve the gate and the mu floor with obstacles. The loop
     reads its exit condition on the host once per iteration;
     `backward_inputs` / `forward_inputs` give the stage inputs of the next
     iteration."""
 
     def __init__(self, z0s, coeffs, p, cfg: SolverConfig, u_init=None,
-                 two_kernel=None, blobs=None):
+                 two_kernel=None, blobs=None, omaps=None):
         dtype = z0s.dtype
         dev = z0s.device
-        if two_kernel is not None and (blobs is not None
+        if two_kernel is not None and (blobs is not None or omaps is not None
                                        or cfg.model != "diff_drive"):
             raise ValueError("the two-kernel route is diff-drive only and "
-                             "takes no blobs")
+                             "takes no obstacles")
         # 4x (K, B): cx, cy, gamma, w
         self.bl = (None if blobs is None else
                    tuple(a.to(dtype=dtype, device=dev) for a in blobs.lane()))
+        self.omaps = (None if omaps is None
+                      else omaps.for_solver(dtype, dev))
         self.cfg, self.p, self.dtype = cfg, p, dtype
         self.B = z0s.shape[0]
         self.T = T = cfg.n_controls
@@ -531,8 +543,10 @@ class LaneSQP:
         self.n_ls = cfg.ls_for(dtype)
         # with obstacles the auto gate is capped at 0.75 and the mu floor
         # resolves without the long-horizon pair
-        has_obs = self.bl is not None
-        self.gate = cfg.gate_for(has_obs, dtype)
+        has_blobs = self.bl is not None
+        has_omaps = self.omaps is not None
+        has_obs = has_blobs or has_omaps
+        self.gate = cfg.gate_for(has_blobs, dtype, has_omaps=has_omaps)
 
         def t(x):
             return torch.as_tensor(x, dtype=dtype, device=dev)
@@ -544,7 +558,8 @@ class LaneSQP:
                     else dataclasses.replace(cfg, scale_adaptive=False))
         (self.mu_min, self.mu_max, self.inv_scl,
          self.cost_guard) = scaled_solver_knobs(knob_cfg, p, dtype, dev,
-                                                has_obstacles=has_obs)
+                                                has_obstacles=has_blobs,
+                                                has_omaps=has_omaps)
         self.mu_factor = t(cfg.mu_factor)
         self.alphas = t(0.5) ** torch.arange(self.n_ls, dtype=dtype,
                                              device=dev)
@@ -565,9 +580,15 @@ class LaneSQP:
         self.iters = torch.zeros((B,), dtype=torch.int32, device=dev)
 
     def _obs_cost_knots(self, ss):
-        """The blob penalty summed over every knot: ss (T+1, ..., 8, B) ->
-        (..., B)."""
-        return blob_terms_bl(*self.bl, ss[..., 0, :], ss[..., 1, :])[0].sum(0)
+        """The grid and blob penalties summed over every knot: ss
+        (T+1, ..., 8, B) -> (..., B)."""
+        x, y = ss[..., 0, :], ss[..., 1, :]
+        tot = 0.0
+        if self.omaps is not None:
+            tot = tot + obstacle_cost_grad_bl(self.omaps, x, y)[0].sum(0)
+        if self.bl is not None:
+            tot = tot + blob_terms_bl(*self.bl, x, y)[0].sum(0)
+        return tot
 
     def running(self) -> bool:
         """The loop condition, read on the host: iterations left, and not
@@ -604,6 +625,14 @@ class LaneSQP:
         else:
             dmask = (gnorm < self.gate).to(dtype) if self.use_ddp else None
             V_s, V_ss = _terminal_bl(ss[-1], self.p, dtype)
+            if self.omaps is not None:
+                xT, yT = ss[-1, 0], ss[-1, 1]
+                _, gxT, gyT = obstacle_cost_grad_bl(self.omaps, xT, yT)
+                V_s[0] += gxT
+                V_s[1] += gyT
+                hxxT, hyyT = obstacle_curv_bl(self.omaps, xT, yT)
+                V_ss[0, 0] += hxxT
+                V_ss[1, 1] += hyyT
             if self.bl is not None:
                 xT, yT = ss[-1, 0], ss[-1, 1]
                 _, gxT, gyT, hxxT, hxyT, hyyT = blob_terms_bl(*self.bl, xT,
@@ -620,7 +649,8 @@ class LaneSQP:
                 V_ss[1, 1] += hyyT
             ks, Ks, dV1, dV2, pg = _backward_bl(
                 ss, us, self.cT, self.dt, self.sign, self.p, V_s, V_ss,
-                self.lb, self.ub, mu, blobs=self.bl, model=self.model,
+                self.lb, self.ub, mu, omaps=self.omaps, blobs=self.bl,
+                model=self.model,
                 ddp=self.use_ddp, ddp_mask=dmask, inv_scale=self.inv_scl)
 
         pred_decrease = -(dV1 + dV2)
@@ -636,8 +666,8 @@ class LaneSQP:
             ss_all, us_all, costs_all = _forward_multi_alpha_bl(
                 ss, us, ks, Ks, self.alphas, self.cT, self.dt, self.sign,
                 self.lb, self.ub, self.p, dtype, self.model)
-            if self.bl is not None:
-                # ss_all (T+1, n_ls, 8, B): each candidate's blob penalty
+            if self.bl is not None or self.omaps is not None:
+                # ss_all (T+1, n_ls, 8, B): each candidate's obstacle penalty
                 costs_all = costs_all + self._obs_cost_knots(ss_all)
             improved = costs_all < cost[None]                    # (n_ls, B)
             accepted = torch.any(improved, dim=0)
@@ -722,20 +752,21 @@ def batch_solve_lane(z0s: torch.Tensor, coeffs: torch.Tensor, p,
 
     `blobs`: a `GaussianObstacles` with (B, K) leaves, per-scenario
     parametric obstacles (the kernel route and the XLA lane path carry
-    them). `refs`: (B, n_steps, 3) per-knot (ref_cte, ref_etheta, ref_vel)
-    setpoint profiles: the kernel route evaluates them, every other
-    configuration runs on `engine.batch_solve` (shared or per-lane
-    params, blobs composed with the profiles)."""
-    if omaps is not None:
-        if refs is not None:
-            # the JAX package's refusal: the fallback below carries no
-            # batched grid terms
-            raise ValueError(
-                "batch_solve_lane(refs=...) with grid omaps requires the "
-                "megakernel path (cfg.backward='mega' on a kernel shape); "
-                "the registry-generic fallback does not carry batched grid "
-                "terms")
-        _not_ported("batch_solve_lane(omaps=...)", "ROADMAP Queue 1, item 5")
+    them). `omaps`: an `ObstacleMap` with leaves (B, ...), per-scenario
+    grid costmaps; they run on the XLA lane path whatever `backward` says
+    (the JAX package's rule: grid sampling is no kernel's). `refs`:
+    (B, n_steps, 3) per-knot (ref_cte, ref_etheta, ref_vel) setpoint
+    profiles: the kernel route evaluates them, every other configuration
+    runs on `engine.batch_solve` (shared or per-lane params, blobs
+    composed with the profiles; grid maps refused)."""
+    if omaps is not None and refs is not None:
+        # the JAX package's refusal: the fallback below carries no
+        # batched grid terms
+        raise ValueError(
+            "batch_solve_lane(refs=...) with grid omaps requires the "
+            "megakernel path (cfg.backward='mega' on a kernel shape); "
+            "the registry-generic fallback does not carry batched grid "
+            "terms")
     if cfg.model not in ("diff_drive", "bicycle"):
         # the lane stages are specialized per family; a silent diff-drive
         # fallback would solve a custom family with the wrong dynamics
@@ -747,7 +778,8 @@ def batch_solve_lane(z0s: torch.Tensor, coeffs: torch.Tensor, p,
         raise ValueError(f"unknown backward {cfg.backward!r}")
 
     B = z0s.shape[0]
-    kernels_ok = B % 128 == 0 and z0s.dtype == torch.float32
+    kernels_ok = (omaps is None and B % 128 == 0
+                  and z0s.dtype == torch.float32)
     on_cuda = z0s.device.type == "cuda"
     use_mega = kernels_ok and (cfg.backward == "mega" or (
         cfg.backward == "auto" and on_cuda))
@@ -789,4 +821,5 @@ def batch_solve_lane(z0s: torch.Tensor, coeffs: torch.Tensor, p,
         )
     if use_pallas:
         return solve_two_kernel(z0s, coeffs, p, cfg, u_init)
-    return LaneSQP(z0s, coeffs, p, cfg, u_init, blobs=blobs).run()
+    return LaneSQP(z0s, coeffs, p, cfg, u_init, blobs=blobs,
+                   omaps=omaps).run()

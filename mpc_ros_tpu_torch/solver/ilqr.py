@@ -21,8 +21,11 @@ scenario is B = 1: `solve` takes z0 (6,) and returns unbatched results.
 Per-scenario MPCParams leaves of shape (B,) ride the batch; they reach
 the autodiff of `step_hessians` mapped per lane (`base.lane_map`).
 
-Grid costmaps (`omap`) are ROADMAP Queue 1 item 5, and the horizon-
-parallel backward (`SolverConfig.horizon_parallel`) item 7; both raise.
+A grid costmap (`omap`, an `ObstacleMap`) is one map shared by every
+lane (grid (H, W)) or one map per lane (grid (B, H, W)), sampled as the
+JAX function mapped over the scenarios samples it. The horizon-parallel
+backward (`SolverConfig.horizon_parallel`) is ROADMAP Queue 1 item 7 and
+raises.
 """
 
 from __future__ import annotations
@@ -37,7 +40,9 @@ from ..models import diff_drive as dd
 from ..models.base import Model, get_model, lane_map
 from ..models.costs import (ref_state_vector, scaled_solver_knobs,
                             stage_expansion_aug, state_weights, total_cost)
-from ..models.obstacles import blob_concave_bl, blob_terms_bl
+from ..models.obstacles import (blob_concave_bl, blob_terms_bl,
+                                obstacle_curv_xy, obstacle_grad_xy,
+                                obstacle_knot_cost)
 from .batch_lane import _not_ported
 from .boxqp import solve_boxqp_2d
 from .types import SolveResult
@@ -86,10 +91,9 @@ def _linearize_and_expand(ss, us, coeffs, p: MPCParams, dt, sign,
     """Per-stage Jacobians and exact cost quadratics along trajectories,
     all stages at once: A (B, T, 8, 8), Bm (B, T, 8, 2), l_s (B, T, 8),
     l_u (B, T, 2), l_ss (B, T, 8, 8), l_uu (B, T, 2, 2), l_us (B, T, 2, 8).
-    `blobs` (leaves (B, K)) add their exact gradient and Gauss-Newton
-    curvature to l_s / l_ss; `refs` (B, N, 3) the per-knot setpoints."""
-    if omap is not None:
-        _not_ported("grid obstacle maps (omap)", "ROADMAP Queue 1, item 5")
+    `omap` adds the costmap penalty's gradient and PSD curvature to
+    l_s / l_ss, `blobs` (leaves (B, K)) their exact gradient and
+    Gauss-Newton curvature; `refs` (B, N, 3) the per-knot setpoints."""
     T = us.shape[1]
     dtype, dev = ss.dtype, ss.device
     rate_on = torch.cat([torch.zeros((1,), dtype=dtype, device=dev),
@@ -101,6 +105,14 @@ def _linearize_and_expand(ss, us, coeffs, p: MPCParams, dt, sign,
     l_s, l_u, l_ss, l_uu, l_us = stage_expansion_aug(
         ss[:, :-1], us, rate_on, p1, None if refs is None else refs[:, :-1])
     l_s, l_ss = l_s.clone(), l_ss.clone()
+    if omap is not None:
+        xy = ss[:, :-1, :2]
+        l_s[..., 0:2] += obstacle_grad_xy(omap, xy)
+        # the PSD curvature of the grid term: without it hard lanes die in
+        # rejected-step spirals (see obstacle_curv_bl)
+        hxx, hyy = obstacle_curv_xy(omap, xy)
+        l_ss[..., 0, 0] += hxx
+        l_ss[..., 1, 1] += hyy
     if blobs is not None:
         _, gx, gy, hxx, hxy, hyy = blob_terms_bl(
             *_blob_lanes(blobs, 1), ss[:, :-1, 0], ss[:, :-1, 1])
@@ -116,11 +128,9 @@ def _linearize_and_expand(ss, us, coeffs, p: MPCParams, dt, sign,
 def _terminal_expansion(s_T, p: MPCParams, omap=None, blobs=None,
                         ref3_T=None):
     """Gradient and Hessian of the terminal tracking cost (exact, closed
-    form), s_T (B, 8) -> V_s (B, 8), V_ss (B, 8, 8); with `blobs` their
-    gradient and Gauss-Newton curvature. `ref3_T` (B, 3) = the last knot's
-    (ref_cte, ref_etheta, ref_vel) row."""
-    if omap is not None:
-        _not_ported("grid obstacle maps (omap)", "ROADMAP Queue 1, item 5")
+    form), s_T (B, 8) -> V_s (B, 8), V_ss (B, 8, 8); with `omap` or
+    `blobs` their gradient and curvature at the last knot. `ref3_T` (B, 3)
+    = the last knot's (ref_cte, ref_etheta, ref_vel) row."""
     dtype, dev = s_T.dtype, s_T.device
     B = s_T.shape[0]
     wz6, ref6 = state_weights(p, dtype, dev)
@@ -134,6 +144,11 @@ def _terminal_expansion(s_T, p: MPCParams, omap=None, blobs=None,
                     dim=-1)
     V_s = 2.0 * wz * (s_T - ref)
     V_ss = torch.diag_embed(2.0 * wz)
+    if omap is not None:
+        V_s[:, 0:2] += obstacle_grad_xy(omap, s_T[:, :2])
+        hxxT, hyyT = obstacle_curv_xy(omap, s_T[:, :2])
+        V_ss[:, 0, 0] += hxxT
+        V_ss[:, 1, 1] += hyyT
     if blobs is not None:
         _, gx, gy, hxx, hxy, hyy = blob_terms_bl(*_blob_lanes(blobs),
                                                  s_T[:, 0], s_T[:, 1])
@@ -269,12 +284,12 @@ def forward_pass_multi_alpha(ss_bar, us_bar, ks, Ks, alphas, z0, coeffs,
 
 
 def _traj_cost(zs, us, p: MPCParams, omap=None, blobs=None, refs=None):
-    """FG_eval objective plus the blob penalty over every knot: zs
+    """FG_eval objective plus the obstacle penalties over every knot: zs
     (B, ..., N, 6), us (B, ..., N-1, 2) -> (B, ...); the MPCParams leaves
     and `refs` shaped to broadcast against zs[..., 0] and zs[..., :3]."""
-    if omap is not None:
-        _not_ported("grid obstacle maps (omap)", "ROADMAP Queue 1, item 5")
     J = total_cost(zs, us, p, refs)
+    if omap is not None:
+        J = J + obstacle_knot_cost(omap, zs[..., :2])
     if blobs is not None:
         extra = zs.dim() - 2
         val = blob_terms_bl(*_blob_lanes(blobs, extra), zs[..., 0],
@@ -305,11 +320,9 @@ def solve(z0: torch.Tensor, coeffs: torch.Tensor, p: MPCParams,
     cold start, the plant rolled under zero controls. `blobs`
     (`GaussianObstacles`, leaves (B, K)) adds Gaussian obstacles; `refs`
     (B, N, 3) per-knot (ref_cte, ref_etheta, ref_vel) setpoint profiles;
-    the two compose. `omap` (grid costmaps) raises (ROADMAP Queue 1,
-    item 5)."""
+    `omap` (an `ObstacleMap`: one map for every lane, or one per lane
+    with leaves (B, ...)) a grid-costmap penalty. They compose."""
     global host_reads
-    if omap is not None:
-        _not_ported("solve(omap=...)", "ROADMAP Queue 1, item 5")
     if cfg.ddp != "auto" and bool(cfg.ddp) and cfg.horizon_parallel:
         # the associative-scan elements need SPD stage quadratics up
         # front, so the gated DDP contraction is sequential-path only
@@ -329,6 +342,8 @@ def solve(z0: torch.Tensor, coeffs: torch.Tensor, p: MPCParams,
         blobs = dataclasses.replace(blobs, **{
             f.name: _batched(getattr(blobs, f.name), dtype, dev, 1)
             for f in dataclasses.fields(blobs)})
+    if omap is not None:
+        omap = omap.for_solver(dtype, dev)
     Bn = z0.shape[0]
     T = cfg.n_controls
     mdl = get_model(cfg.model)
@@ -347,7 +362,7 @@ def solve(z0: torch.Tensor, coeffs: torch.Tensor, p: MPCParams,
     ss = _rollout_aug(z0, us0, coeffs, dt, sign, mdl, p)
     us = us0
     p1 = _lane_params(p, 1)
-    cost = _traj_cost(ss[..., :dd.STATE_DIM], us, p1, None, blobs, refs)
+    cost = _traj_cost(ss[..., :dd.STATE_DIM], us, p1, omap, blobs, refs)
 
     def t_(x):
         return torch.as_tensor(x, dtype=dtype, device=dev)
@@ -359,10 +374,12 @@ def solve(z0: torch.Tensor, coeffs: torch.Tensor, p: MPCParams,
     # mu bounds and the relative-cost guards' floor scale with s, pg is
     # measured on Q_u / s
     mu_min, mu_max, inv_scl, cost_guard = scaled_solver_knobs(
-        cfg, p, dtype, dev, has_obstacles=blobs is not None)
+        cfg, p, dtype, dev, has_obstacles=blobs is not None,
+        has_omaps=omap is not None)
     mu_factor = t_(cfg.mu_factor)
     alphas = t_(0.5) ** torch.arange(n_ls, dtype=dtype, device=dev)
-    gate_val = cfg.gate_for(blobs is not None, dtype)
+    gate_val = cfg.gate_for(blobs is not None, dtype,
+                            has_omaps=omap is not None)
 
     mu = mu_min.expand(Bn).clone()
     it = torch.zeros((Bn,), dtype=torch.int32, device=dev)
@@ -381,9 +398,9 @@ def solve(z0: torch.Tensor, coeffs: torch.Tensor, p: MPCParams,
             break
         run = ~done
         A, Bm, l_s, l_u, l_ss, l_uu, l_us = _linearize_and_expand(
-            ss, us, coeffs, p, dt, sign, mdl, None, blobs, refs)
+            ss, us, coeffs, p, dt, sign, mdl, omap, blobs, refs)
         V_s, V_ss = _terminal_expansion(
-            ss[:, -1], p, None, blobs, None if refs is None else refs[:, -1])
+            ss[:, -1], p, omap, blobs, None if refs is None else refs[:, -1])
         if use_ddp:
             H = step_hessians(ss, us, coeffs, dt, sign, mdl, p)
             # obstacle ensembles cap the auto gate at 0.75 and restore the
@@ -414,7 +431,7 @@ def solve(z0: torch.Tensor, coeffs: torch.Tensor, p: MPCParams,
         # a cost decrease wins
         ss_all, us_all, costs_all = forward_pass_multi_alpha(
             ss, us, ks, Ks, alphas, z0, coeffs, p, dt, lb, ub, sign, mdl,
-            None, blobs, refs)
+            omap, blobs, refs)
         improved = costs_all < cost[:, None]
         accepted = torch.any(improved, dim=1)
         rank = torch.arange(n_ls, device=dev)

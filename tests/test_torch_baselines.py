@@ -176,12 +176,54 @@ def test_dwa_window_evaluation_matches_jax(seed):
         assert abs(float(wo) - float(wr)) <= CMD_TOL
 
 
-def test_dwa_grid_costmap_is_not_ported():
+@pytest.mark.parametrize("seed", range(3))
+def test_dwa_grid_costmap_matches_jax(seed):
+    """The window evaluator with a robot-frame grid costmap (float32,
+    bilinear, as the JAX evaluator samples it), alone and beside blobs:
+    the same winner as JAX's, and the map moves the winner away from the
+    map-free one on at least one seed's window."""
+    import jax.numpy as jnp
+
+    from mpc_ros_tpu.models.obstacles import ObstacleMap as JMap
+    from mpc_ros_tpu_torch.models.obstacles import ObstacleMap
+
+    rng = np.random.default_rng(10 + seed)
     cfg = DWAConfig()
-    z = torch.zeros(())
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
-        _dwa_eval(cfg, z, z, torch.zeros(5), torch.zeros(cfg.plan_points, 2),
-                  torch.zeros(2), omap=object())
+    P = cfg.plan_points
+    s = np.linspace(0, 2.5, P)
+    pts = np.stack([s, rng.normal() * 0.2 * s ** 2], -1).astype(np.float32)
+    lim = np.array([1.0, 3.0, 1.5, 0.5, 0.0], np.float32)
+    v0, w0 = np.float32(rng.uniform(0.1, 0.5)), np.float32(rng.normal() * 0.3)
+    xs = np.linspace(-2.0, 2.0, 48)
+    X, Y = np.meshgrid(xs, xs)
+    c = (rng.uniform(0.3, 0.8), rng.normal() * 0.1)
+    g = np.exp(-((X - c[0]) ** 2 + (Y - c[1]) ** 2) / 0.18).astype(
+        np.float32)
+    leaves = (g, np.float32([-2.0, -2.0]), np.float32(4.0 / 47),
+              np.float32(50.0))
+    ours_m = ObstacleMap(*(torch.tensor(a) for a in leaves))
+    ref_m = JMap(*(jnp.asarray(a) for a in leaves))
+    bl = [np.array([1.2]), np.array([0.4]), np.array([0.3]),
+          np.array([40.0])]
+    ours_b = GaussianObstacles.from_sigmas(*(
+        torch.tensor(a, dtype=torch.float32) for a in bl))
+    from mpc_ros_tpu.models.obstacles import GaussianObstacles as JBlobs
+
+    ref_b = JBlobs.from_sigmas(*(jnp.asarray(a, jnp.float32) for a in bl))
+    args_o = (torch.tensor(v0), torch.tensor(w0), torch.tensor(lim),
+              torch.tensor(pts), torch.tensor(pts[-1]))
+    args_r = (jnp.float32(v0), jnp.float32(w0), jnp.asarray(lim),
+              jnp.asarray(pts), jnp.asarray(pts[-1]))
+    jcfg = JDWAConfig()
+    for blobs_o, blobs_r in ((None, None), (ours_b, ref_b)):
+        vo, wo = _dwa_eval(cfg, *args_o, omap=ours_m, blobs=blobs_o)
+        f = _dwa_eval_jit(jcfg, True, blobs_r is not None)
+        kw = {"omap": ref_m}
+        if blobs_r is not None:
+            kw["blobs"] = blobs_r
+        vr, wr = f(*args_r, **kw)
+        assert abs(float(vo) - float(vr)) <= CMD_TOL
+        assert abs(float(wo) - float(wr)) <= CMD_TOL
 
 
 @pytest.fixture

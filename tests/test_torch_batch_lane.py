@@ -122,31 +122,24 @@ def test_random_scenarios_distribution():
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(omaps=object()), NotImplementedError, "Queue 1, item 5"),
-    (dict(omaps=object(), backward="mega"), NotImplementedError,
-     "Queue 1, item 5"),
     (dict(omaps=object(), refs=object()), ValueError, "megakernel path"),
     (dict(model="tricycle"), ValueError, "lane-specialized families"),
-    (dict(solve="omap"), NotImplementedError, "Queue 1, item 5"),
     (dict(solve="horizon_parallel"), NotImplementedError, "Queue 1, item 7"),
     (dict(solve="horizon_parallel", ddp=True), ValueError,
      "not supported with horizon_parallel"),
-], ids=["omaps", "omaps_mega", "omaps_refs", "unknown_model", "ilqr_omap",
-        "ilqr_horizon_parallel", "ilqr_ddp_horizon_parallel"])
+], ids=["omaps_refs", "unknown_model", "ilqr_horizon_parallel",
+        "ilqr_ddp_horizon_parallel"])
 def test_unported_paths_raise(kw, exc, match):
-    """Grid obstacle maps wait for `ObstacleMap` (and with per-knot
-    profiles refuse as the JAX package does), the horizon-parallel
-    backward for its port; a family the lane stages are not specialized
-    for raises; the single-scenario solver keeps the JAX package's
-    refusal of DDP under horizon_parallel."""
+    """Grid obstacle maps with per-knot profiles refuse as the JAX package
+    does (grid maps themselves run: tests/test_torch_grid_solve.py); the
+    horizon-parallel backward waits for its port; a family the lane
+    stages are not specialized for raises; the single-scenario solver
+    keeps the JAX package's refusal of DDP under horizon_parallel."""
     z0, coeffs = numpy_scenarios(0, B)
     solve = kw.pop("solve", None)
     cfg_kw = {k: kw.pop(k) for k in ("backward", "model", "ddp") if k in kw}
     if solve is not None:
-        if solve == "horizon_parallel":
-            cfg_kw["horizon_parallel"] = True
-        else:
-            kw["omap"] = object()
+        cfg_kw["horizon_parallel"] = True
         with pytest.raises(exc, match=match):
             ilqr.solve(torch.tensor(z0), torch.tensor(coeffs), MPCParams(),
                        SolverConfig(n_steps=N, **cfg_kw), **kw)

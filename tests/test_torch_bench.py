@@ -201,10 +201,17 @@ def test_quick_mode_prints_one_json_line(mode):
 
 
 def test_grid_obstacles_name_their_item():
-    for flags in (["--obstacles-grid"], ["--grid-sampling", "bilinear"]):
-        r = _run("--quick", *flags, timeout=120)
-        assert r.returncode != 0
-        assert "ROADMAP Queue 1, item 5" in r.stderr
+    """The grid flags parse as bench.py's (bench.py:226-236): spline_coeff
+    by default, the three samplings, an unknown one refused; the runs
+    themselves are tests/test_torch_costmap_planners.py's."""
+    args = bench_cuda.parse_args(["--obstacles-grid"])
+    assert args.obstacles_grid and args.grid_sampling == "spline_coeff"
+    for s in ("spline", "spline_coeff", "bilinear"):
+        assert bench_cuda.parse_args(["--grid-sampling", s]).grid_sampling \
+            == s
+    r = _run("--quick", "--obstacles-grid", "--grid-sampling", "bicubic",
+             timeout=120)
+    assert r.returncode != 0 and "invalid choice" in r.stderr
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")

@@ -297,7 +297,6 @@ def test_cli_prints_one_json_line():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--config", "x.yaml"], "item 8"),
     (["--realtime", "--max-cycles", "1"], "item 8")])
 def test_cli_refuses_what_is_not_ported(argv, item):
     from mpc_ros_tpu_torch.sim import run
@@ -307,10 +306,19 @@ def test_cli_refuses_what_is_not_ported(argv, item):
 
 
 def test_costmap_route_is_not_ported():
-    pl = MPCPlanner(device="cpu")
+    """The costmap route is ported now (tests/test_torch_costmap_planners.py
+    holds it against JAX): `set_costmap` installs the fitted world blobs
+    on the planner's device, `set_costmap(None)` clears them."""
+    from mpc_ros_tpu_torch.models.obstacles import gaussian_blob_map
+
+    pl = MPCPlanner(device="cpu", dtype=torch.float64)
     pl.initialize()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        pl.set_costmap(object())
+    pl.set_costmap(gaussian_blob_map((1.0, 0.2), dtype=torch.float64))
+    wo = pl.world_obstacles
+    assert wo.cx.shape == (4,) and wo.cx.dtype == torch.float64
+    assert abs(float(wo.cx[0]) - 1.0) < 0.1 and float(wo.w[0]) > 10.0
+    pl.set_costmap(None)
+    assert pl.world_obstacles is None
 
 
 def test_entry_points_need_the_card_or_cpu():

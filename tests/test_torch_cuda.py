@@ -5,13 +5,17 @@ long-horizon compact schedule and the two-kernel route launching them, the
 XLA lane path taking what the kernels do not, and the single-robot closed
 loop (the planner and the trajectory tracker on the three courses) and
 fleet serving (the host and device pipelines and the fleet trajectory
-tracker, with K1 launched once per cycle). Run on
+tracker, with K1 launched once per cycle), grid costmaps on the XLA lane
+path against the CPU, the fleet's costmap route (one K1 launch per
+cycle), the device blob fit and the supervisors. Run on
 the card with
 `python -m pytest --noconftest tests/test_torch_cuda.py` (tests/conftest.py
 configures JAX, which the card's machine need not have).
 """
 
 import dataclasses
+
+import numpy as np
 
 import pytest
 import torch
@@ -845,3 +849,148 @@ def test_fleet_entry_points_default_to_the_card(dev):
     for obj in (FleetPlanner(), DeviceFleetPlanner(),
                 FleetTrajectoryTracker(MPCParams(), SolverConfig())):
         assert obj.device.type == "cuda" and obj.params.w_cte.is_cuda
+
+
+# -- grid costmaps, the costmap routes and the supervisors (chip_smoke.py
+# phases 32-34 at small B)
+
+@pytest.mark.parametrize("sampling", ["spline_coeff", "spline", "bilinear"])
+def test_grid_costmaps_take_the_xla_path_on_the_card(dev, sampling):
+    """Grid maps on the card at B=256 (`bench.py --obstacles-grid`'s maps,
+    cap 30): no kernel launch (grid maps take the XLA lane path, as in
+    JAX) and the same lanes solved on the CPU in float32 within the
+    single-pass gates. The spline surfaces converge >= 0.99; bilinear's
+    unconverged lanes sit on cell kinks and are cost-converged (the JAX
+    package's check, tests/test_obstacle_fit.py:150-158: doubling the cap
+    moves their cost by < 0.1%), and a lane converged on one side only
+    is held to that cost bar against the CPU in place of the
+    convergence-match gates."""
+    from mpc_ros_tpu_torch.models.obstacles import gaussian_blob_map
+
+    B = 256
+    cfg = dataclasses.replace(PROD, max_sqp_iters=30)
+    z, c = _scen(dev, B, seed=32)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cen = 0.3 + 0.9 * torch.rand((B, 2), device=dev, generator=gen)
+    omaps = gaussian_blob_map((cen[:, 0], cen[:, 1]), sigma=0.3,
+                              weight=100.0, sampling=sampling, device=dev)
+    p = MPCParams().astype(torch.float32, dev)
+    before = _launch_counts()
+    res = batch_solve_lane(z, c, p, cfg, omaps=omaps)
+    torch.cuda.synchronize()
+    assert _launch_counts() == before
+    cpu = batch_solve_lane(z.cpu(), c.cpu(), MPCParams(), cfg,
+                           omaps=omaps.to(device="cpu"))
+    card = [res.us.cpu().numpy(), res.cost.cpu().numpy(),
+            res.converged.cpu().numpy(), res.n_iters.cpu().numpy()]
+    g = parity_gates(*card, cpu.us.numpy(), cpu.cost.numpy(),
+                     cpu.converged.numpy(), cpu.n_iters.numpy(), cfg.n_steps)
+    if sampling != "bilinear":
+        assert float(res.converged.float().mean()) >= 0.99
+        assert g["ok"], g
+        return
+    bad = ~res.converged
+    if bool(bad.any()):
+        r60 = batch_solve_lane(z, c, p, dataclasses.replace(
+            cfg, max_sqp_iters=60), omaps=omaps)
+        rel = ((res.cost - r60.cost).abs() / (1.0 + r60.cost.abs()))[bad]
+        assert float(rel.max()) < 1e-3
+    one_side = card[2] != cpu.converged.numpy()
+    rel = (np.abs(card[1] - cpu.cost.numpy())
+           / (1.0 + np.abs(cpu.cost.numpy())))
+    lim = g["limits"]
+    assert g["max_du"] <= lim["max_du"], g
+    assert g["max_rel_dcost"] <= lim["max_rel_dcost"], g
+    assert g["iters_match_frac"] >= lim["iters_match_frac"], g
+    assert not one_side.any() or float(rel[one_side].max()) < 1e-3
+
+
+def test_costmap_fleet_launches_k1_once_per_cycle(dev):
+    """`FleetPlanner.set_costmaps` every cycle for 128 robots (host maps,
+    one pinned upload, the fit on the card): the fitted blobs on the card
+    and exactly one K1 launch per cycle, every command finite."""
+    from mpc_ros_tpu_torch.config import PlannerConfig
+    from mpc_ros_tpu_torch.models.obstacles import gaussian_blob_map
+    from mpc_ros_tpu_torch.planner import FleetPlanner
+    from mpc_ros_tpu_torch.testing import fleet_courses, step_poses
+
+    B = 128
+    plans = fleet_courses(B, offset=10.0, period=64)
+    at = torch.tensor(np.stack([pl[40, :2] for pl in plans]),
+                      dtype=torch.float32)
+    maps = gaussian_blob_map((torch.full((B,), 0.2), torch.zeros(B)),
+                             sigma=0.3, weight=50.0)
+    maps = maps.replace(origin=maps.origin + at)
+    fp = FleetPlanner(MPCParams(max_angvel=1.5, w_cte=300.0,
+                                w_angvel_d=10.0, w_accel_d=10.0),
+                      SolverConfig(n_steps=20),
+                      PlannerConfig(local_plan_length=2.5), device=dev)
+    fp.initialize(B)
+    poses = np.stack([pl[0] for pl in plans]).astype(float)
+    fb = np.zeros((B, 2))
+    assert fp.set_plans(plans, poses).all()
+    solve_mega.launches = 0
+    for _ in range(4):
+        fp.set_costmaps(maps)
+        _, cmds, _ = fp.compute_velocity_commands(poses, fb)
+        assert np.isfinite(cmds).all()
+        fb = step_poses(poses, cmds, 0.1)
+    assert solve_mega.launches == 4
+    assert fp.world_obstacles.cx.is_cuda
+    assert tuple(fp.world_obstacles.cx.shape) == (B, 4)
+
+
+def test_device_fit_matches_host_on_the_card(dev):
+    """`fit_gaussians_to_maps` on the card against the host greedy fit at
+    the bar of tests/test_obstacle_fit.py:161, the test's own maps."""
+    from mpc_ros_tpu_torch.models.obstacles import (ObstacleMap,
+                                                    fit_gaussians_to_map,
+                                                    fit_gaussians_to_maps,
+                                                    gaussian_blob_map)
+
+    ms = [gaussian_blob_map((0.8, 0.5), sigma=0.3, weight=100.0),
+          gaussian_blob_map((-0.5, 1.0), sigma=0.5, weight=50.0),
+          ObstacleMap.empty()]
+    omaps = ObstacleMap(*(torch.stack([getattr(m, f) for m in ms]).to(dev)
+                          for f in ("grid", "origin", "resolution",
+                                    "weight")))
+    fit = fit_gaussians_to_maps(omaps, 4)
+    assert fit.cx.is_cuda
+    for i, m in enumerate(ms):
+        host = fit_gaussians_to_map(m, 4, refine=False)
+        for nm, tol in (("cx", 1e-5), ("cy", 1e-5), ("gamma", 5e-4),
+                        ("w", 1e-4)):
+            h = getattr(host, nm).double()
+            d = getattr(fit, nm)[i].double().cpu()
+            assert float(((h - d).abs() / (1.0 + h.abs())).max()) < tol
+
+
+def test_supervisors_recover_on_the_card(dev):
+    """tests/test_recovery.py:189's lost-plan case around the card's
+    `MPCPlanner`: the ladder replans once, the planner recovers, the
+    command is finite and the warm carry stays on the card."""
+    from mpc_ros_tpu_torch.config import PlannerConfig
+    from mpc_ros_tpu_torch.planner import (MPCPlanner, RecoveryConfig,
+                                           RecoveryState, RecoverySupervisor)
+
+    planner = MPCPlanner(MPCParams(),
+                         SolverConfig(n_steps=10, max_sqp_iters=8,
+                                      backward="xla"),
+                         PlannerConfig(), device=dev)
+    planner.initialize()
+    plan = np.stack([np.linspace(0, 3, 30), np.zeros(30), np.zeros(30)], 1)
+    pose = np.array([0.0, 0.05, 0.0])
+    sup = RecoverySupervisor(planner, RecoveryConfig(
+        failures_to_recover=3, rotate_speed=0.4, rotate_cycles_max=5,
+        max_rounds=2))
+    assert sup.set_plan(plan, pose)
+    ok, cmd, _ = planner.compute_velocity_commands(pose, (0.2, 0.0))
+    ok, cmd = sup.on_cycle(ok, cmd, pose, (0.2, 0.0))
+    assert ok
+    planner.global_plan = None
+    for _ in range(3):
+        ok, cmd, _ = planner.compute_velocity_commands(pose, (0.2, 0.0))
+        ok, cmd = sup.on_cycle(ok, cmd, pose, (0.2, 0.0))
+    assert ok and sup.state is RecoveryState.NORMAL
+    assert sup.stats.replans == 1 and np.isfinite(cmd).all()
+    assert planner.tracker._warm_dev.is_cuda

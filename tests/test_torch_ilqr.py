@@ -18,7 +18,8 @@ numpy inputs, in float64:
   of the two solvers' responses to a one-ulp change of z0) (ROADMAP
   Queue 3 item 5), cost to rtol 1e-10; one scenario unbatched against
   JAX `solve_jit`;
-* the scipy oracle (`solver/oracle.py::solve_oracle`) at the bars of
+* the port's scipy oracle (`solver/oracle.py::solve_oracle`, held to
+  the JAX oracle in tests/test_torch_supervisors.py) at the bars of
   `tests/test_solver.py`, and float32 against float64 within 1e-3.
 """
 
@@ -38,11 +39,11 @@ from mpc_ros_tpu.models.base import get_model as jget_model
 from mpc_ros_tpu.models.obstacles import GaussianObstacles as JBlobs
 from mpc_ros_tpu.solver import boxqp as jboxqp
 from mpc_ros_tpu.solver import ilqr as jilqr
-from mpc_ros_tpu.solver.oracle import solve_oracle
 from mpc_ros_tpu_torch.config import MPCParams, SolverConfig
 from mpc_ros_tpu_torch.models.base import get_model
 from mpc_ros_tpu_torch.models.obstacles import GaussianObstacles
 from mpc_ros_tpu_torch.solver import boxqp, ilqr
+from mpc_ros_tpu_torch.solver.oracle import solve_oracle
 from mpc_ros_tpu_torch.testing import (numpy_blobs, numpy_refs,
                                        numpy_scenarios, scaled_weights,
                                        torch_threads)
@@ -392,7 +393,7 @@ def test_matches_oracle(case):
         cfg = SolverConfig(n_steps=10, max_sqp_iters=200, tol_grad=1e-10)
         jcfg = JSolverConfig(n_steps=10, max_sqp_iters=200, tol_grad=1e-10)
     res = ilqr.solve(_t(z0), _t(coeffs), tp, cfg)
-    orc = solve_oracle(z0, coeffs, jp, jcfg)
+    orc = solve_oracle(z0, coeffs, tp, cfg)
     assert orc.success, orc.status
     dev = float(np.max(np.abs(res.us.numpy() - orc.us)))
     assert dev < 1e-3, dev

@@ -40,7 +40,10 @@ def test_no_jax_imports():
                 "obs/metrics.py", "sim/shapes.py", "sim/simulator.py",
                 "sim/logger.py", "planner/trajectory.py", "sim/run.py",
                 "planner/baselines.py", "sim/compare.py",
-                "kernels/roofline.py", "obs/timers.py"):
+                "kernels/roofline.py", "obs/timers.py",
+                "models/obstacles.py", "ops/linspace.py", "config_io.py",
+                "obs/checkpoint.py", "solver/oracle.py",
+                "planner/safety.py", "planner/recovery.py"):
         assert f"mpc_ros_tpu_torch/{mod}" in names, mod
     bad = {}
     for path in FILES:

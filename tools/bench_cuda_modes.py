@@ -7,9 +7,8 @@ collect their JSON lines.
 Writes one JSON object per mode to OUT.jsonl (default
 chiprun_out/bench_cuda_modes.jsonl): the mode's name, its flags, its exit
 code and seconds, and the JSON lines it printed (`--roofline` prints two).
-`--obstacles-grid` is expected to fail naming ROADMAP Queue 1, item 5;
-every other mode to exit 0. Prints one summary line per mode and exits 1
-if any mode did not do what it should. Needs the card (`bench_cuda.py`
+Every mode is expected to exit 0. Prints one summary line per mode and
+exits 1 if any mode did not do what it should. Needs the card (`bench_cuda.py`
 without `--quick` exits non-zero without one).
 """
 
@@ -25,8 +24,10 @@ ROOT = Path(__file__).resolve().parents[1]
 
 # (name, flags): the main path and its knobs, the obstacle, presort,
 # smart-init, generic-engine and bicycle paths, the sweep, serving, the
-# fleets and the trajectory fleet, as bench.py runs them. The generic
-# engine runs at B=16,384: at the default 524,288 one call takes ~30 s.
+# fleets and the trajectory fleet, and the grid ensemble in its three
+# samplings (B=4,096, the XLA lane path), as bench.py runs them. The
+# generic engine runs at B=16,384: at the default 524,288 one call takes
+# ~30 s.
 MODES = [
     ("main", ["--roofline"]),
     ("verify", ["--verify"]),
@@ -55,8 +56,11 @@ MODES = [
     ("fleet_trajectory", ["--fleet-trajectory"]),
     ("fleet_trajectory_obstacles", ["--fleet-trajectory", "--obstacles"]),
     ("obstacles_grid", ["--obstacles-grid"]),
+    ("obstacles_grid_spline", ["--obstacles-grid", "--grid-sampling",
+                               "spline"]),
+    ("obstacles_grid_bilinear", ["--obstacles-grid", "--grid-sampling",
+                                 "bilinear"]),
 ]
-EXPECT_FAIL = {"obstacles_grid": "ROADMAP Queue 1, item 5"}
 # a mode that runs longer is stopped and recorded with rc 124
 MODE_TIMEOUT_S = 600
 
@@ -91,13 +95,9 @@ def main(argv) -> int:
                      if ln.startswith("{")]
             rec = {"mode": name, "flags": flags, "rc": r.returncode,
                    "seconds": time.perf_counter() - t0, "lines": lines}
-            if name in EXPECT_FAIL:
-                ok = r.returncode != 0 and EXPECT_FAIL[name] in r.stderr
-                rec["stderr_tail"] = r.stderr[-300:]
-            else:
-                ok = r.returncode == 0 and len(lines) >= 1
-                if not ok:
-                    rec["stderr_tail"] = r.stderr[-3000:]
+            ok = r.returncode == 0 and len(lines) >= 1
+            if not ok:
+                rec["stderr_tail"] = r.stderr[-3000:]
             rec["ok"] = ok
             bad += not ok
             f.write(json.dumps(rec) + "\n")
