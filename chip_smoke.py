@@ -175,7 +175,30 @@ them and never falls back to the CPU. Phases, one output line each:
     reached with the clearance of tests/test_obstacle_planner.py:60;
 34. `SafetyMonitor` and `RecoverySupervisor` around the card's
     `MPCPlanner` on tests/test_recovery.py:189's lost-plan case: the
-    ladder replans, the planner recovers, every command finite.
+    ladder replans, the planner recovers, every command finite;
+35. `parallel.sharded_batch_solve` at N=30, B=524,288 on a mesh of two
+    entries of this card (one GPU: NCCL between cards is not exercised):
+    two K1 launches of 262,144 lanes per solve on two streams, bit for bit
+    the unsharded solve; ms per sharded and unsharded solve; one shard's
+    launch timed and held against the plain version;
+36. the compact N=48 solve (B=131,072) split the same way, held to the
+    unsharded one at the single-pass fraction gates;
+37. `FleetPlanner(mesh=)`, 1,024 robots x 10 cycles, two K1 launches per
+    cycle, commands equal to the unsharded fleet's every cycle; ms per
+    cycle of both; one shard's solve against the plain version;
+38. `ilqr.solve(horizon_parallel=True)` at N=100, B=16,384 in float32:
+    ms per solve, sweeps per iteration, host reads, its gates against the
+    sequential solve printed (the JAX package's pair fails them alike);
+    256 lanes in float64 against the CPU (equal iterations, 1e-6 on us)
+    and tests/test_riccati.py:105's float64 problem (1e-6 on us);
+39. `entry.entry()` (one K1 launch) and `entry.dryrun_multichip(4)` on
+    [cuda:0] * 4 (data 2 x time 2) within the JAX dryrun's bounds;
+40. the supervised `PlannerNode` at dt = 0.05 on tests/test_realtime_
+    20hz.py's course: the rate executor's cycles, overruns and worst
+    lateness, the course's completion and the errors, printed; gated on
+    finite commands and a clean stop;
+41. the examples `fleet_serving`, `fleet_planner --fleet 64 --cycles 20`
+    and `custom_model` run to their end on the card.
 
 Every timed window of the whole-solve kernel (phases 4, 5, 10-12, 16,
 18, 19) reports the median, min and max of WINDOW launches, the SM clock
@@ -3317,6 +3340,375 @@ def supervisors(dev) -> dict:
     return out
 
 
+# Scale-out and the rest of the port (phases 35-41). The card machine has
+# one GPU, so a mesh here repeats it: [cuda:0] * 2 splits a batch into two
+# shards, each solved on a CUDA stream of its own (one K1 launch per
+# shard); NCCL between GPUs is not exercised.
+SHARDS = 2
+# phase 36: the compact N=48 solve, split the same way
+B_SHARD_LONG = 131072
+# phase 37: the host fleet split over the mesh, held to the unsharded one
+MESH_FLEET_CYCLES = 10
+# phase 38: the horizon-parallel solve at PERF.md's N=100 shape, and 256
+# of its lanes against the CPU
+HORIZON = dataclasses.replace(LONGEST, horizon_parallel=True)
+HORIZON_CPU_LANES = 256
+# phase 40: the supervised node at the reference's 20 Hz
+# (tests/test_realtime_20hz.py's planner, course and plant loop)
+NODE_DT = 0.05
+NODE_SECONDS = 35.0
+
+
+def mesh_of(dev, n_data: int, n_time: int = 1):
+    from mpc_ros_tpu_torch.parallel import make_mesh
+
+    return make_mesh(n_data=n_data, n_time=n_time,
+                     devices=[dev] * (n_data * n_time))
+
+
+def results_equal(a, b) -> bool:
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("us", "zs", "cost", "converged", "n_iters"))
+
+
+def sharded_main(dev) -> dict:
+    """Phase 35: `sharded_batch_solve` at the main path's shape (N=30,
+    B=524,288) on a mesh of two entries of this card: two K1 launches of
+    262,144 lanes per solve, each shard on its own stream, bit for bit
+    the unsharded `batch_solve_lane` (at done_frac = 1 a lane's result
+    does not depend on how the lanes group into blocks); ms per sharded
+    and unsharded solve; one shard's launch timed, bounded and held
+    against the plain version."""
+    from mpc_ros_tpu_torch.parallel import sharded_batch_solve
+
+    mesh = mesh_of(dev, SHARDS)
+    z0s, coeffs = scenarios(1, B_MAIN, dev)
+    p = params(B_MAIN, dev, False)
+    sharded_batch_solve(mesh, z0s, coeffs, p, PROD)            # warm-up
+    reps = 3
+    reset_launches()
+    res, t_sh = host_s(lambda: [sharded_batch_solve(mesh, z0s, coeffs, p,
+                                                    PROD)
+                                for _ in range(reps)][-1])
+    launches = solve_mega.launches
+    if launches != SHARDS * reps:
+        raise SystemExit(f"sharded_main: {launches} K1 launches over {reps}"
+                         f" solves on {SHARDS} shards")
+    check_result(res, B_MAIN)
+    flat, t_flat = host_s(lambda: batch_solve_lane(z0s, coeffs, p, PROD))
+    equal = results_equal(res, flat)
+    half = B_MAIN // SHARDS
+    ins = lane_inputs(z0s[:half], coeffs[:half], params(half, dev, False),
+                      PROD)
+    _, win, bound, _ = timed_launch(ins, PROD)
+    vs_plain, _, plain_s, _, _ = held_against_plain(ins, PROD,
+                                                    "sharded_main shard 0")
+    out = dict(batch=B_MAIN, shards=SHARDS, launches=launches,
+               sharded_ms=t_sh / reps * 1e3, unsharded_ms=t_flat * 1e3,
+               bit_for_bit=equal,
+               converged_frac=float(res.converged.float().mean()),
+               mean_iters=float(res.n_iters.float().mean()),
+               kernel_ms=win["median_ms"], window=win, plain_ms=plain_s * 1e3,
+               bound_ms=bound[0], bound_by=bound[1], vs_plain=vs_plain)
+    emit("sharded_main", **out)
+    if not equal:
+        raise SystemExit("sharded_main: the sharded solve differs from the "
+                         "unsharded one")
+    return out
+
+
+def sharded_compact(dev) -> dict:
+    """Phase 36: the compact N=48 solve split over two shards against the
+    unsharded compact solve: under done_frac < 1 the grouping of lanes
+    matters, so the two are held at the single-pass fraction gates only
+    (converged and iteration matches, flips, mean iterations)."""
+    from mpc_ros_tpu_torch.parallel import sharded_batch_solve
+
+    mesh = mesh_of(dev, SHARDS)
+    z0s, coeffs = scenarios(7, B_SHARD_LONG, dev)
+    p = params(B_SHARD_LONG, dev, False)
+    sharded_batch_solve(mesh, z0s, coeffs, p, LONG)            # warm-up
+    reset_launches()
+    res, t_sh = host_s(lambda: sharded_batch_solve(mesh, z0s, coeffs, p,
+                                                   LONG))
+    launches, passes = solve_mega.launches, solve_mega.passes
+    check_result(res, B_SHARD_LONG, LONG.n_steps)
+    flat, t_flat = host_s(lambda: batch_solve_lane(z0s, coeffs, p, LONG))
+    g = parity_gates(res.us.cpu().numpy(), res.cost.cpu().numpy(),
+                     res.converged.cpu().numpy(), res.n_iters.cpu().numpy(),
+                     flat.us.cpu().numpy(), flat.cost.cpu().numpy(),
+                     flat.converged.cpu().numpy(),
+                     flat.n_iters.cpu().numpy(), LONG.n_steps)
+    lim = g["limits"]
+    ok = (g["conv_match_frac"] >= lim["conv_match_frac"]
+          and g["iters_match_frac"] >= lim["iters_match_frac"]
+          and g["flip_or_oneside_frac"] <= lim["flip_or_oneside_frac"]
+          and abs(g["mean_iters"][0] - g["mean_iters"][1])
+          <= lim["mean_iters_diff"])
+    out = dict(batch=B_SHARD_LONG, shards=SHARDS, launches=launches,
+               passes=passes, sharded_ms=t_sh * 1e3,
+               unsharded_ms=t_flat * 1e3, gates=g, fraction_gates_ok=ok)
+    emit("sharded_compact", **out)
+    if launches < 2 * SHARDS or not ok:
+        raise SystemExit(f"sharded_compact: {out}")
+    return out
+
+
+def fleet_mesh(dev) -> dict:
+    """Phase 37: `FleetPlanner(mesh=)` with 1,024 robots over 10 cycles on
+    its own pose stream, each cycle's solve split over two shards (two K1
+    launches of 512 lanes), against the unsharded fleet fed the same
+    poses: the commands equal every cycle. ms per cycle of both; one
+    shard's warm solve held against the plain version."""
+    from mpc_ros_tpu_torch.planner import FleetPlanner
+    from mpc_ros_tpu_torch.solver import batch_lane
+    from mpc_ros_tpu_torch.testing import step_poses
+
+    plans = fleet_plans(FLEET_B)
+    fps = []
+    for mesh in (None, mesh_of(dev, SHARDS)):
+        fp = FleetPlanner(fleet_params(), FLEET, LOOP_PLANNER, device=dev,
+                          mesh=mesh)
+        fp.initialize(FLEET_B)
+        poses = np.stack([pl[0] for pl in plans]).astype(float)
+        if not fp.set_plans(plans, poses).all():
+            raise SystemExit("fleet_mesh: a plan was refused")
+        fps.append(fp)
+    poses = np.stack([pl[0] for pl in plans]).astype(float)
+    fb = np.zeros((FLEET_B, 2))
+    times = ([], [])
+    launches = [0, 0]
+    worst = 0.0
+    with SolveTap(batch_lane) as tap:
+        for c in range(MESH_FLEET_CYCLES):
+            cmds = []
+            for k, fp in enumerate(fps):
+                tap.want = k == 1 and c == FLEET_CAPTURE
+                reset_launches()
+                t0 = time.perf_counter()
+                _, cmd, _ = fp.compute_velocity_commands(poses.copy(),
+                                                         fb.copy())
+                times[k].append(time.perf_counter() - t0)
+                launches[k] += solve_mega.launches
+                cmds.append(cmd)
+            if not np.isfinite(cmds[1]).all():
+                raise SystemExit(f"fleet_mesh: non-finite commands, cycle "
+                                 f"{c}")
+            worst = max(worst, float(np.abs(cmds[0] - cmds[1]).max()))
+            fb = step_poses(poses, cmds[0], 0.1)
+        k1 = fleet_k1_check(tap.calls.pop(), "fleet_mesh shard 0")
+    out = dict(batch=FLEET_B, shards=SHARDS, cycles=MESH_FLEET_CYCLES,
+               unsharded=fleet_rate(times[0], FLEET_B),
+               sharded=fleet_rate(times[1], FLEET_B),
+               k1_launches=launches[1], k1_launches_unsharded=launches[0],
+               max_cmd_diff=worst, k1=k1)
+    emit("fleet_mesh", **out)
+    if worst != 0.0 or launches[1] != SHARDS * MESH_FLEET_CYCLES:
+        raise SystemExit(f"fleet_mesh: {out}")
+    return out
+
+
+def horizon_parallel(dev) -> dict:
+    """Phase 38: `ilqr.solve` with the horizon-parallel backward at N=100,
+    B=16,384 (cap 45) in float32: ms per solve, SQP iterations, active-set
+    sweeps per iteration and host reads, no kernel on this path; its
+    gates against the sequential Gauss-Newton solve of the same profile
+    on the card printed, not held (the JAX package's own pair fails them
+    at this shape alike: `tools/horizon_parallel_vs_jax.py`, PERF.md).
+    Held: 256 of its lanes in float64 on the card against the same solve
+    on the CPU (equal iterations and convergence on every lane, controls
+    within tests/test_riccati.py's 1e-6), and tests/test_riccati.py:105's
+    interior problem (N=40) against the sequential solve on the card in
+    float64 within 1e-6."""
+    from mpc_ros_tpu_torch.solver import ilqr, riccati
+
+    seq_cfg = dataclasses.replace(HORIZON, horizon_parallel=False, ddp=False)
+    z0s, coeffs = scenarios(5, B_LONGEST, dev)
+    p = params(B_LONGEST, dev, False)
+    reset_launches()
+    reads, sweeps = ilqr.host_reads, riccati.sweeps
+    sweep_reads = riccati.host_reads
+    res, t_par = host_s(lambda: ilqr.solve(z0s, coeffs, p, HORIZON))
+    iters = ilqr.host_reads - reads
+    sweeps = riccati.sweeps - sweeps
+    sweep_reads = riccati.host_reads - sweep_reads
+    launches = solve_mega.launches
+    check_result(res, B_LONGEST, HORIZON.n_steps)
+    seq, t_seq = host_s(lambda: ilqr.solve(z0s, coeffs, p, seq_cfg))
+    vs_seq = parity_gates(*(x.cpu().numpy() for x in (
+        res.us, res.cost, res.converged, res.n_iters, seq.us, seq.cost,
+        seq.converged, seq.n_iters)), HORIZON.n_steps)
+    # float64: the card against the CPU on the first 256 lanes
+    n, f64 = HORIZON_CPU_LANES, torch.float64
+    cpu = torch.device("cpu")
+    z64, c64 = z0s[:n].to(f64), coeffs[:n].to(f64)
+    p64 = MPCParams().astype(f64, dev)
+    card, t_card = host_s(lambda: ilqr.solve(z64, c64, p64, HORIZON))
+    t0 = time.perf_counter()
+    ref = ilqr.solve(z64.to(cpu), c64.to(cpu), MPCParams().astype(f64),
+                     HORIZON)
+    t_cpu = time.perf_counter() - t0
+    vs_cpu = dict(
+        lanes=n, iters_equal=bool(torch.equal(card.n_iters.cpu(),
+                                              ref.n_iters)),
+        converged_equal=bool(torch.equal(card.converged.cpu(),
+                                         ref.converged)),
+        max_du=float((card.us.cpu() - ref.us).abs().max()), bar=1e-6,
+        card_ms=t_card * 1e3, cpu_ms=t_cpu * 1e3)
+    # tests/test_riccati.py's interior problem in float64 on the card
+    f64d = dict(dtype=f64, device=dev)
+    z1 = torch.tensor([0.0, 0.0, 0.0, 0.3, 0.05, -0.0997], **f64d)
+    c1 = torch.tensor([0.05, -0.1, 0.2, -0.02], **f64d)
+    p1 = MPCParams(w_cte=100.0, w_vel=100.0, w_angvel_d=10.0,
+                   w_accel_d=10.0).astype(f64, dev)
+    r_seq = ilqr.solve(z1, c1, p1, SolverConfig(n_steps=40, tol_grad=1e-9))
+    r_par = ilqr.solve(z1, c1, p1, SolverConfig(n_steps=40, tol_grad=1e-9,
+                                                horizon_parallel=True))
+    f64_du = float((r_par.us - r_seq.us).abs().max())
+    out = dict(batch=B_LONGEST, n_steps=HORIZON.n_steps,
+               cap=HORIZON.max_sqp_iters, ms_per_solve=t_par * 1e3,
+               sequential_ms_per_solve=t_seq * 1e3, sqp_iterations=iters,
+               sweeps=sweeps, sweeps_per_iteration=sweeps / max(iters, 1),
+               sweep_host_reads=sweep_reads, k1_launches=launches,
+               converged_frac=float(res.converged.float().mean()),
+               mean_iters=float(res.n_iters.float().mean()),
+               vs_sequential_printed=vs_seq, vs_cpu_f64=vs_cpu,
+               f64_interior=dict(max_du=f64_du, bar=1e-6,
+                                 converged=bool(r_par.converged)))
+    emit("horizon_parallel", **out)
+    if not (vs_cpu["iters_equal"] and vs_cpu["converged_equal"]
+            and vs_cpu["max_du"] <= 1e-6 and f64_du <= 1e-6
+            and bool(r_par.converged) and launches == 0):
+        raise SystemExit(f"horizon_parallel: {out}")
+    return out
+
+
+def dryrun(dev) -> dict:
+    """Phase 39: `entry()` on the card (one K1 launch, finite first
+    controls), then `dryrun_multichip(4)` on [cuda:0] * 4 (data 2 x
+    time 2), every phase within the JAX dryrun's bounds."""
+    from mpc_ros_tpu_torch import entry as port_entry
+
+    fn, args = port_entry.entry()
+    reset_launches()
+    u0 = fn(*args)
+    torch.cuda.synchronize()
+    launches = solve_mega.launches
+    t0 = time.perf_counter()
+    out = port_entry.dryrun_multichip(4)
+    out = dict(entry=dict(shape=list(u0.shape), k1_launches=launches,
+                          finite=bool(torch.isfinite(u0).all())),
+               dryrun=out, dryrun_s=time.perf_counter() - t0)
+    emit("dryrun_multichip", **out)
+    if launches != 1 or not out["entry"]["finite"]:
+        raise SystemExit(f"entry: {out['entry']}")
+    return out
+
+
+def node_realtime(dev) -> dict:
+    """Phase 40: the supervised `PlannerNode` (SafetyMonitor and
+    RecoverySupervisor) at the reference's dt = 0.05 with
+    tests/test_realtime_20hz.py's planner (N=20), course segment
+    (infinity[:160]) and plant loop (integrated over the real elapsed
+    time), its planner on the card: the rate executor's statistics, the
+    course's completion and the errors printed. Gated on finite commands
+    and a clean stop(); the overruns, the errors and the monitor's faults
+    are printed, not gated: the cycle is several times the period
+    (ROADMAP Queue 3 item 8), which they measure."""
+    import struct
+
+    from mpc_ros_tpu_torch.planner import (MPCPlanner, RecoverySupervisor,
+                                           SafetyMonitor)
+    from mpc_ros_tpu_torch.planner.node import (TWIST_FMT, PlannerNode,
+                                                pack_pose, pack_twist)
+    from mpc_ros_tpu_torch.sim import get_shape
+
+    p = MPCParams(dt=NODE_DT, ref_vel=0.5, w_cte=300.0, w_angvel_d=10.0,
+                  w_accel_d=10.0, max_angvel=1.5)
+    planner = MPCPlanner(params=p,
+                         solver_cfg=SolverConfig(n_steps=20, backward="xla"),
+                         planner_cfg=PlannerConfig(local_plan_length=2.5),
+                         device=dev)
+    planner.initialize()
+    safety = SafetyMonitor(period_s=NODE_DT)
+    recovery = RecoverySupervisor(planner)
+    node = PlannerNode(planner, period_s=NODE_DT, recovery=recovery,
+                       safety=safety)
+    plan = get_shape("infinity")[:160]
+    pose = plan[0].copy().astype(float)
+    vel = (0.0, 0.0)
+    node.pose_topic.publish(pack_pose(*pose))
+    node.feedback_topic.publish(pack_twist(*vel))
+    if not node.set_plan(plan):
+        raise SystemExit("node_realtime: the plan was refused")
+    # the cold and the first warm cycle outside the paced loop
+    t0 = time.perf_counter()
+    planner.compute_velocity_commands(pose, vel)
+    planner.compute_velocity_commands(pose, vel)
+    warm_s = time.perf_counter() - t0
+    node.start()
+    reached, cmds = False, []
+    t_end = time.time() + NODE_SECONDS
+    last = time.time()
+    try:
+        while time.time() < t_end:
+            now = time.time()
+            h, last = now - last, now
+            raw = node.cmd_topic.read()
+            if raw is not None:
+                v, w = struct.unpack(TWIST_FMT, raw)
+                cmds.append((v, w))
+                pose = pose + h * np.array(
+                    [v * np.cos(pose[2]), v * np.sin(pose[2]), w])
+                vel = (v, w)
+            node.pose_topic.publish(pack_pose(*pose))
+            node.feedback_topic.publish(pack_twist(*vel))
+            if planner.is_goal_reached(pose, vel):
+                reached = True
+                break
+            time.sleep(0.004)
+    finally:
+        stopped = node.stop(timeout=10.0)
+    goal = plan[-1]
+    rs = node.rate_stats
+    out = dict(dt=NODE_DT, rate_stats=rs,
+               overrun_frac=rs["overruns"] / max(rs["cycles"], 1),
+               node_cycles=node.cycles, errors=node.errors,
+               last_error=node.last_error, reached=reached,
+               dist_to_goal_m=float(np.hypot(pose[0] - goal[0],
+                                             pose[1] - goal[1])),
+               safety=dataclasses.asdict(safety.status),
+               recovery=dataclasses.asdict(recovery.stats),
+               commands_read=len(cmds), warm_up_s=warm_s, stopped=stopped,
+               carry_device=str(planner.tracker._warm_dev.device))
+    emit("node_realtime", **out)
+    if not (stopped and cmds and np.isfinite(np.asarray(cmds)).all()):
+        raise SystemExit(f"node_realtime: {out}")
+    return out
+
+
+def examples_on_card(dev) -> dict:
+    """Phase 41: the examples `fleet_serving`, `fleet_planner --fleet 64
+    --cycles 20` and `custom_model` on the card, each run to its end
+    (`main`), with their seconds and K1 launches (their batches, 32, 64
+    and 256 scenarios of a custom family, take the XLA lane path and the
+    generic engine: B % 128 != 0 or no lane family)."""
+    import importlib
+
+    out = {}
+    for name, argv in (("fleet_serving", []),
+                       ("fleet_planner", ["--fleet", "64", "--cycles",
+                                          "20"]),
+                       ("custom_model", [])):
+        mod = importlib.import_module(f"mpc_ros_tpu_torch.examples.{name}")
+        reset_launches()
+        _, s = host_s(lambda: mod.main(argv))
+        out[name] = dict(argv=argv, seconds=s,
+                         k1_launches=solve_mega.launches)
+    emit("examples", **out)
+    return out
+
+
 def build_pairs(survey: bool = False) -> set:
     """Every (kernel, variant) pair the phases launch (the survey's alone
     with `survey`): the whole-solve kernel's variants, then the fused
@@ -3420,6 +3812,13 @@ def main(argv) -> None:
     grid_main_path(dev)
     cm = costmap_routes(dev)
     supervisors(dev)
+    sh = sharded_main(dev)
+    sharded_compact(dev)
+    fm = fleet_mesh(dev)
+    horizon_parallel(dev)
+    dryrun(dev)
+    node_realtime(dev)
+    examples_on_card(dev)
     fleet_err = max(fh[k]["k1"]["vs_plain"]["max_du"]
                     for k in ("plain", "bicycle", "blobs"))
     fleet_err = max(fleet_err, fd["k1"]["vs_plain"]["max_du"])
@@ -3485,6 +3884,18 @@ def main(argv) -> None:
               cm["fleet"]["k1_launches"], ck["vs_plain"]["max_du"],
               ck["kernel_ms"], ck["plain_ms"],
               (ck["bound_ms"], ck["bound_by"])),
+        # the same kernel split over a mesh of two entries of this card:
+        # one launch per shard per solve (phase 35) and per fleet cycle
+        # (phase 37), each shard held against the plain version
+        entry("solve_mega[sharded]", "solve_mega.cu",
+              "mpc_ros_tpu/kernels/solve_pallas.py:53", sh["launches"],
+              sh["vs_plain"]["max_du"], sh["kernel_ms"], sh["plain_ms"],
+              (sh["bound_ms"], sh["bound_by"])),
+        entry("solve_mega[fleet_mesh]", "solve_mega.cu",
+              "mpc_ros_tpu/kernels/solve_pallas.py:53", fm["k1_launches"],
+              fm["k1"]["vs_plain"]["max_du"], fm["k1"]["kernel_ms"],
+              fm["k1"]["plain_ms"],
+              (fm["k1"]["bound_ms"], fm["k1"]["bound_by"])),
         entry("backward_fused", "backward_fused.cu",
               "mpc_ros_tpu/kernels/backward_fused_pallas.py:52",
               rm["launches"]["backward_fused"], st["bwd_err"], rm["bwd_ms"],

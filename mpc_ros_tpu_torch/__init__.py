@@ -7,8 +7,19 @@ beside it. CPU tensors run the plain versions; CUDA tensors launch the
 kernels. The package never imports JAX.
 """
 
-from .config import MPCParams, SolverConfig
+from .config import MPCParams, PlannerConfig, PlannerLimits, SolverConfig
+from .config_io import (config_from_dict, config_to_dict, load_config,
+                        save_config)
 
 __version__ = "0.1.0"
 
-__all__ = ["MPCParams", "SolverConfig"]
+__all__ = [
+    "MPCParams",
+    "SolverConfig",
+    "PlannerConfig",
+    "PlannerLimits",
+    "config_from_dict",
+    "config_to_dict",
+    "load_config",
+    "save_config",
+]

@@ -14,11 +14,21 @@ lane-specialized families.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..models.base import get_model
 from ..solver import ilqr
 from ..solver.types import SolveResult
+
+
+@dataclasses.dataclass
+class Scenario:
+    """One NMPC problem instance (every leaf batchable)."""
+
+    z0: torch.Tensor      # (6,) initial state
+    coeffs: torch.Tensor  # (P,) reference-polynomial coefficients
 
 
 def batch_solve(z0s: torch.Tensor, coeffs: torch.Tensor, p, cfg,

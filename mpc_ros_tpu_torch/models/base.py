@@ -21,8 +21,8 @@ tensor or a tensor that broadcasts against z[..., 0]):
 The registry holds "diff_drive" and "bicycle" with closed-form Jacobians;
 `model_from_step` builds a family from a step function alone, its
 Jacobians by forward-mode autodiff (`torch.func.jacfwd` under
-`torch.func.vmap`). Grid obstacle maps (`ObstacleMap`) are ROADMAP Queue 1,
-item 5.
+`torch.func.vmap`). Grid obstacle maps (`ObstacleMap`) are in
+`models/obstacles.py`.
 """
 
 from __future__ import annotations

@@ -23,7 +23,9 @@ the solve in flight.
 
 The planner runs on the card unless built with `device="cpu"`; without a
 card it raises. Grid costmaps (`set_costmaps`) are fitted to blobs on the
-device; a device mesh (`mesh=`) waits for ROADMAP Queue 1 item 7.
+device. With a device mesh (`mesh=`, `parallel.make_mesh`) the cycle's
+solve is split over the mesh's data axis (`parallel.sharded_batch_solve`:
+one K1 launch per shard on the card).
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from ..config import MPCParams, PlannerConfig, SolverConfig
 from ..models.base import get_model
 from ..models.obstacles import (GaussianObstacles, ObstacleMap,
                                 fit_gaussians_to_maps)
-from ..solver.batch_lane import _not_ported, batch_solve_lane
+from ..solver.batch_lane import batch_solve_lane
 from .fsm import DrivingState
 from .tracking import _host_twin, resolve_device
 
@@ -138,10 +140,12 @@ class FleetPlanner:
                  solver_cfg: SolverConfig = SolverConfig(),
                  planner_cfg: PlannerConfig = PlannerConfig(),
                  dtype=torch.float32, mesh=None, device=None):
-        if mesh is not None:
-            _not_ported("FleetPlanner(mesh=...) (the solve sharded over a "
-                        "device mesh)", "ROADMAP Queue 1, item 7")
+        """`mesh`: an optional `parallel.Mesh`; the per-cycle solve splits
+        the robot batch over its data axis, B / n_data robots per shard
+        (B divisible by n_data). The planner's own tensors stay on
+        `device`."""
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.dtype = dtype
         self.solver_cfg = solver_cfg
         self.planner_cfg = planner_cfg
@@ -797,6 +801,12 @@ class FleetPlanner:
         if self._world_dev is not None:
             blobs = _blobs_to_frames(self._world_dev, up[:, 8 + P:],
                                      self.dtype)
+        if self.mesh is not None:
+            from ..parallel.sharded import sharded_batch_solve
+
+            return sharded_batch_solve(self.mesh, z0s, coeffs, p,
+                                       self.solver_cfg, u_init=warm,
+                                       blobs=blobs)
         return batch_solve_lane(z0s, coeffs, p, self.solver_cfg,
                                 u_init=warm, blobs=blobs)
 

@@ -33,7 +33,11 @@ values are equal and the gathers stand in for the sums.
 
 The JAX cycle is one compiled program with a donated carry. Here it runs
 as eager torch ops; capturing it as a CUDA graph is ROADMAP Queue 1
-item 4b. A device mesh (`mesh=`) is item 7.
+item 4b. With a device mesh (`mesh=`) the whole cycle runs per data shard
+(the JAX program under `shard_map`): the plan constants and the carry are
+kept as one dict per shard on the shard's device, each shard runs `_cycle`
+on its B / n_data robots (one K1 launch per shard on the card), and the
+commands and observability rows are concatenated in shard order.
 """
 
 from __future__ import annotations
@@ -49,6 +53,8 @@ from ..models.obstacles import GaussianObstacles
 from ..solver.batch_lane import batch_solve_lane
 from .fleet import (_IDLE, _ROT_GOAL, _ROT_PRE, _TRACK, FleetCycleInfo,
                     FleetPlanner, _blobs_to_frames, fetch, upload)
+
+_REPLICATED = ("wire_scales",)
 
 _TWO_PI = 2.0 * np.pi
 
@@ -496,6 +502,30 @@ class DeviceFleetPlanner(FleetPlanner):
             # sends a float32 keyframe that seeds both sides
             self._wire_ticks = np.zeros((self.B, 5), np.int32)
             self._carry["wire_ticks"] = up(self._wire_ticks, i32)
+        if self.mesh is not None:
+            self._consts = self._split(self._consts)
+            self._carry = self._split(self._carry)
+
+    def _split(self, d: dict) -> list:
+        """A dict of the fleet's device tensors as one dict per data
+        shard, on the shard's device (the entries of `_REPLICATED` whole
+        on each)."""
+        from ..parallel.sharded import split_rows
+
+        rows = {k: v for k, v in d.items() if k not in _REPLICATED}
+        parts = split_rows(self.mesh, rows, self.B)
+        for part, dev in zip(parts, self.mesh.data_devices()):
+            part.update({k: d[k].to(dev) for k in _REPLICATED if k in d})
+        return parts
+
+    def _joined(self, key: str) -> torch.Tensor:
+        """A carry entry over the whole fleet (gathered from the shards
+        under a mesh)."""
+        if self.mesh is None:
+            return self._carry[key]
+        from ..parallel.sharded import gather_rows
+
+        return gather_rows([c[key] for c in self._carry], device=self.device)
 
     def _sync_to_host(self) -> None:
         """The device carry into the host mirror fields (checkpoints, the
@@ -503,7 +533,7 @@ class DeviceFleetPlanner(FleetPlanner):
         if self._carry is None:
             return
         keys = _CARRY_KEYS
-        c = dict(zip(keys, fetch(*(self._carry[k] for k in keys))))
+        c = dict(zip(keys, fetch(*(self._joined(k) for k in keys))))
         self._start = np.array(c["start"], np.int64)
         self.states = np.array(c["states"], np.int64)
         self.latch_xy = np.array(c["latch_xy"], bool)
@@ -549,13 +579,29 @@ class DeviceFleetPlanner(FleetPlanner):
         world[:, :3] = poses
         world[:, 3:] = feedback
         world = upload(world, torch.float32, self.device)
-        c = self._carry
-        lx, ly, sng, reached = _goal(
-            self.planner_cfg, self.model.can_rotate_in_place, self._consts,
-            c["latch_xy"], c["latch_yaw"], c["set_new_goal"], world[:, :3],
-            world[:, 3:])
-        self._carry = dict(c, latch_xy=lx, latch_yaw=ly, set_new_goal=sng,
-                           states=torch.where(reached, _IDLE, c["states"]))
+
+        def goal(consts, c, wd):
+            lx, ly, sng, reached = _goal(
+                self.planner_cfg, self.model.can_rotate_in_place, consts,
+                c["latch_xy"], c["latch_yaw"], c["set_new_goal"],
+                wd[:, :3], wd[:, 3:])
+            return dict(c, latch_xy=lx, latch_yaw=ly, set_new_goal=sng,
+                        states=torch.where(reached, _IDLE, c["states"])), \
+                reached
+
+        if self.mesh is None:
+            self._carry, reached = goal(self._consts, self._carry, world)
+        else:
+            from ..parallel.sharded import gather_rows, split_rows
+
+            out = []
+            for i, (k, c, wd) in enumerate(zip(
+                    self._consts, self._carry,
+                    split_rows(self.mesh, world, self.B))):
+                with self.mesh.on(i):
+                    out.append(goal(k, c, wd))
+            self._carry = [o[0] for o in out]
+            reached = gather_rows([o[1] for o in out], device=self.device)
         return np.asarray(fetch(reached)[0], bool)
 
     # -- the hot path --------------------------------------------------------
@@ -611,15 +657,37 @@ class DeviceFleetPlanner(FleetPlanner):
         if self._world_dev is not None:
             ob = self._world_dev
             blob_leaves = (ob.cx, ob.cy, ob.gamma, ob.w)
-        carry2, cmds_out, obs = _cycle(
-            self.solver_cfg, self.planner_cfg, self.dtype, wire_mode,
-            self._consts, self._carry, world, self.params, *blob_leaves)
-        self._carry = carry2
+        if self.mesh is None:
+            self._carry, cmds_out, obs = _cycle(
+                self.solver_cfg, self.planner_cfg, self.dtype, wire_mode,
+                self._consts, self._carry, world, self.params, *blob_leaves)
+        else:
+            cmds_out, obs = self._cycle_sharded(wire_mode, world,
+                                                blob_leaves)
         want_obs = self.obs_every > 0 and (
             self._cycle_count % self.obs_every == 0)
         self._cycle_count += 1
         return {"cmds": cmds_out, "obs": obs if want_obs else None,
                 "ok": self._has_plan()}
+
+    def _cycle_sharded(self, wire_mode: str, world, blob_leaves):
+        """`_cycle` on every data shard of the mesh, each on its B / n_data
+        robots and its own carry; the (2, B) commands and (8, B) rows
+        concatenated in shard order on the planner's device."""
+        from ..parallel.sharded import gather_rows, split_rows
+
+        B, mesh = self.B, self.mesh
+        out = []
+        for i, args in enumerate(zip(
+                self._consts, self._carry, split_rows(mesh, world, B),
+                split_rows(mesh, self.params, B),
+                *(split_rows(mesh, a, B) for a in blob_leaves))):
+            with mesh.on(i):
+                out.append(_cycle(self.solver_cfg, self.planner_cfg,
+                                  self.dtype, wire_mode, *args))
+        self._carry = [o[0] for o in out]
+        return (gather_rows([o[1] for o in out], 1, self.device),
+                gather_rows([o[2] for o in out], 1, self.device))
 
     def finish_cycle(self, h: dict):
         def decode(cm):

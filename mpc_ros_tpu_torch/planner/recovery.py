@@ -26,8 +26,7 @@ blind 2π.
 
 Complements `planner.safety.SafetyMonitor`: the monitor validates commands
 and fails safe (controlled stop); the supervisor actively tries to get
-planning working again. The JAX package's `PlannerNode` wires both (its
-node is ROADMAP Queue 1 item 8 here).
+planning working again. `planner.node.PlannerNode` wires both.
 """
 
 from __future__ import annotations

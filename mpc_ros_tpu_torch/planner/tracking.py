@@ -14,9 +14,12 @@ carry and shifted there, and one packed fetch of us, zs, cost, converged,
 iterations, grad and reg. No parameter leaf is read back per cycle: the
 host math reads the numpy twin of the parameters (`_host_twin`).
 
-The JAX package fits the path with its native C++ core when it builds
-(`tracking.py:253-265` there); that core is ROADMAP Queue 1 item 8 here,
-so the port always takes the numpy fit (its `np.polyfit` branch).
+The path fit runs in the native C++ core (`native.plan_fit`: the
+transform, a Householder-QR fit, cte and the lookahead heading; the same
+source as the JAX package's) unless `_native_prep` is set False, which
+takes the numpy fit (`np.polyfit`). One difference from the JAX package
+is deliberate: where it switches to numpy on a build or ABI failure, the
+port raises, since a silent switch would hide a broken build.
 
 The controller runs on the card unless the caller passes `device="cpu"`;
 without a card it raises (`resolve_device`).
@@ -129,6 +132,8 @@ class TrackingController:
         # the robot-frame local costmap (`obstacle_map`), on the device
         self._omap = None
         self._omap_src = None
+        # the native C++ path fit (False: the numpy fit)
+        self._native_prep = True
 
     def reset(self) -> None:
         self.w = 0.0
@@ -220,19 +225,30 @@ class TrackingController:
                 pcfg.min_speed, pcfg.max_speed))
 
         # world -> robot frame and the cubic fit (the degree drops with
-        # the number of waypoints)
+        # the number of waypoints): the native core, or numpy where it
+        # returns None (a degenerate fit) or `_native_prep` is False
         order = min(self.solver_cfg.poly_order, len(ref_plan) - 1)
-        ct, st = np.cos(theta), np.sin(theta)
-        dx = ref_plan[:, 0] - px
-        dy = ref_plan[:, 1] - py
-        x_veh = dx * ct + dy * st
-        y_veh = dy * ct - dx * st
-        c = np.polyfit(x_veh, y_veh, order)[::-1]
+        fit = None
+        if self._native_prep:
+            from ..native.runtime import plan_fit
+
+            fit = plan_fit(ref_plan[:, :2], (px, py, theta), order)
         coeffs = np.zeros(self.solver_cfg.n_coeffs)
-        coeffs[: len(c)] = c
-        cte = float(np.polyval(coeffs[::-1], 0.0))
-        # the 30% lookahead path direction with the 0 -> 2 pi shim
-        traj_deg, valid = lookahead_heading(ref_plan)
+        if fit is not None:
+            c, cte, traj_deg, valid = fit
+            coeffs[: len(c)] = c
+        else:
+            ct, st = np.cos(theta), np.sin(theta)
+            dx = ref_plan[:, 0] - px
+            dy = ref_plan[:, 1] - py
+            x_veh = dx * ct + dy * st
+            y_veh = dy * ct - dx * st
+            c = np.polyfit(x_veh, y_veh, order)[::-1]
+            coeffs[: len(c)] = c
+            cte = float(np.polyval(coeffs[::-1], 0.0))
+            # the 30% lookahead path direction
+            traj_deg, valid = lookahead_heading(ref_plan)
+        # the 0 -> 2 pi shim
         temp_theta = theta
         if temp_theta <= -np.pi + traj_deg:
             temp_theta += 2.0 * np.pi

@@ -20,7 +20,9 @@ one launch of the whole-solve kernel with its per-knot setpoints (K1
 stage (f)). `pipeline="host"` keeps the sampling and the fit in float64
 numpy; `pipeline="device"` runs the whole cycle on the device
 (`_traj_cycle`): one upload of the (B, 4) world state and the time, the
-warm bank kept on the device, one fetch of a (3, B) tile.
+warm bank kept on the device, one fetch of a (3, B) tile. With a device
+mesh (`mesh=`, device pipeline only) that cycle runs per data shard, each
+shard's constants and warm bank on its device.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from ..config import MPCParams, PlannerConfig, SolverConfig
 from ..models.base import get_model
 from ..models.obstacles import GaussianObstacles
 from ..solver import ilqr
-from ..solver.batch_lane import _not_ported, batch_solve_lane
+from ..solver.batch_lane import batch_solve_lane
 from .fleet import _blobs_to_frames, fetch, upload
 from .fleet_device import _chol_solve_small
 from .fsm import normalize_angle
@@ -376,12 +378,16 @@ class FleetTrajectoryTracker:
         """`obs_every`: fill `self.last_obs`, a (6, B) per-robot tile (cte,
         etheta, ref_v[0], cost, converged, iters), every K cycles (0 =
         never: commands and lags alone come back; on skipped cycles
-        last_obs is None)."""
+        last_obs is None).
+
+        `mesh`: an optional `parallel.Mesh` (device pipeline only): the
+        device cycle runs per data shard, B / n_data robots each, with no
+        communication between shards; the commands equal the unsharded
+        cycle's."""
         assert pipeline in ("host", "device"), pipeline
-        if mesh is not None:
-            _not_ported("FleetTrajectoryTracker(mesh=...) (the device "
-                        "cycle sharded over a device mesh)",
-                        "ROADMAP Queue 1, item 7")
+        assert mesh is None or pipeline == "device", \
+            "mesh sharding requires pipeline='device'"
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.dtype = dtype
         self.params = params.astype(dtype, self.device)
@@ -448,6 +454,10 @@ class FleetTrajectoryTracker:
                                 for k, v in leaves.items()}
             self._dev_consts["len"] = upload(self._len, torch.int32,
                                              self.device)
+            if self.mesh is not None:
+                from ..parallel.sharded import split_rows
+
+                self._dev_consts = split_rows(self.mesh, self._dev_consts, B)
 
     def finished(self, t_now: float, poses: np.ndarray) -> np.ndarray:
         """(B,) flags: past the schedule's end and inside the xy
@@ -613,11 +623,32 @@ class FleetTrajectoryTracker:
         if self._world_dev is not None:
             ob = self._world_dev
             blob_leaves = (ob.cx, ob.cy, ob.gamma, ob.w)
-        warm, out, obs = _traj_cycle(
-            cfg, float(self.planner_cfg.max_speed), self.catchup_gain,
-            float(max(self.planner_cfg.local_plan_length, 1e-6)), self.dtype,
-            self._dev_consts, self._warm_us, up[:4 * B].reshape(B, 4),
-            up[4 * B:], self.params, *blob_leaves)
+        world, tnow = up[:4 * B].reshape(B, 4), up[4 * B:]
+        knobs = (cfg, float(self.planner_cfg.max_speed), self.catchup_gain,
+                 float(max(self.planner_cfg.local_plan_length, 1e-6)),
+                 self.dtype)
+        if self.mesh is None:
+            warm, out, obs = _traj_cycle(
+                *knobs, self._dev_consts, self._warm_us, world, tnow,
+                self.params, *blob_leaves)
+        else:
+            from ..parallel.sharded import gather_rows, split_rows
+
+            mesh = self.mesh
+            if isinstance(self._warm_us, torch.Tensor):
+                self._warm_us = split_rows(mesh, self._warm_us, B)
+            parts = []
+            for i, (k, w, wd, pp, *bl) in enumerate(zip(
+                    self._dev_consts, self._warm_us,
+                    split_rows(mesh, world, B),
+                    split_rows(mesh, self.params, B),
+                    *(split_rows(mesh, a, B) for a in blob_leaves))):
+                with mesh.on(i):
+                    parts.append(_traj_cycle(
+                        *knobs, k, w, wd, tnow.to(wd.device), pp, *bl))
+            warm = [q[0] for q in parts]
+            out = gather_rows([q[1] for q in parts], 1, self.device)
+            obs = gather_rows([q[2] for q in parts], 1, self.device)
         self._warm_us = warm
         if self._want_obs():
             o, obs_h = fetch(out, obs)

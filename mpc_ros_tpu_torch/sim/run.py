@@ -147,6 +147,8 @@ def main(argv=None) -> None:
         "geo_err_max_m": round(float(d.max()), 4),
         **stats.summary(),
     }
+    if res.rate_stats:
+        out["rate"] = res.rate_stats
     print(json.dumps(out))
 
 

@@ -5,8 +5,8 @@ commands are (v, w); the bicycle's are (v, delta), its heading advancing
 by v / lf * delta. The plant is host numpy; the planner's solve runs where
 the planner was built (the card unless `device="cpu"`).
 
-`realtime=True` paces cycles with the native rate executor of the JAX
-package, which is ROADMAP Queue 1 item 8 here: it raises.
+`realtime=True` paces cycles at the control period with the native rate
+executor (`native.RateLoop`) and reports its overrun statistics.
 """
 
 from __future__ import annotations
@@ -18,7 +18,6 @@ from typing import Optional
 import numpy as np
 
 from ..planner.planner import MPCPlanner
-from ..solver.batch_lane import _not_ported
 
 
 @dataclasses.dataclass
@@ -114,10 +113,12 @@ def run_closed_loop(planner: MPCPlanner, plan: np.ndarray,
     """Drive the plant with the planner until the goal is reached, logging
     per cycle (idx, cte, etheta, v_cmd, w_cmd) in the reference CSVs'
     schema: cte and etheta are the solver's error-state inputs, or outside
-    Tracking the distance to the nearest plan point and 0."""
-    if realtime:
-        _not_ported("run_closed_loop(realtime=True): the native rate "
-                    "executor", "ROADMAP Queue 1, item 8")
+    Tracking the distance to the nearest plan point and 0.
+
+    `realtime=True` paces the cycles at the control period with the native
+    rate executor (`native.RateLoop`), armed after the first two cycles
+    (the cold solve and the first warm one), and puts its overrun
+    statistics on the result (`rate_stats`)."""
     dt = _max_dt(planner.params)
     if start_pose is None:
         start_pose = plan[0].copy()
@@ -128,6 +129,7 @@ def run_closed_loop(planner: MPCPlanner, plan: np.ndarray,
     if not planner.set_plan(plan, plant.pose, plant.feedback_vel):
         raise ValueError("planner rejected the plan")
 
+    rate = None
     records = []
     poses = []
     states = []
@@ -135,6 +137,10 @@ def run_closed_loop(planner: MPCPlanner, plan: np.ndarray,
     t_start = time.perf_counter()
     n_cycles = 0
     for cycle in range(1, max_cycles + 1):
+        if realtime and rate is None and cycle > 2:
+            from ..native import RateLoop
+
+            rate = RateLoop(dt)
         if planner.is_goal_reached(plant.pose, plant.feedback_vel):
             reached = True
             break
@@ -155,7 +161,14 @@ def run_closed_loop(planner: MPCPlanner, plan: np.ndarray,
         states.append(info.state)
         poses.append(plant.pose.copy())
         plant.step(v_cmd, w_cmd)
+        if rate is not None:
+            rate.sleep()
 
+    wall = time.perf_counter() - t_start
+    rate_stats = None
+    if rate is not None:
+        rate_stats = rate.stats
+        rate.close()
     result = ClosedLoopResult(
         records=np.asarray(records) if records else np.zeros((0, 5)),
         poses=np.asarray(poses) if poses else np.zeros((0, 3)),
@@ -164,8 +177,9 @@ def run_closed_loop(planner: MPCPlanner, plan: np.ndarray,
         # the cycles that executed a command (the goal-reached iteration
         # breaks before stepping the plant)
         n_cycles=n_cycles,
-        wall_time_s=time.perf_counter() - t_start,
+        wall_time_s=wall,
         course_time_s=n_cycles * dt,
+        rate_stats=rate_stats,
     )
     if log_path is not None:
         from .logger import write_tracking_csv

@@ -56,10 +56,6 @@ _COMBOS = list(itertools.product(range(3), repeat=2))
 _NC = len(_COMBOS)
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet ({item})")
-
-
 def _pl(p, name, dtype, device):
     return torch.as_tensor(getattr(p, name), dtype=dtype, device=device)
 

@@ -23,9 +23,9 @@ the autodiff of `step_hessians` mapped per lane (`base.lane_map`).
 
 A grid costmap (`omap`, an `ObstacleMap`) is one map shared by every
 lane (grid (H, W)) or one map per lane (grid (B, H, W)), sampled as the
-JAX function mapped over the scenarios samples it. The horizon-parallel
-backward (`SolverConfig.horizon_parallel`) is ROADMAP Queue 1 item 7 and
-raises.
+JAX function mapped over the scenarios samples it. With
+`SolverConfig.horizon_parallel` the backward is the associative-scan
+Riccati of `solver/riccati.py` (`backward_pass_parallel`), O(log T) deep.
 """
 
 from __future__ import annotations
@@ -43,7 +43,6 @@ from ..models.costs import (ref_state_vector, scaled_solver_knobs,
 from ..models.obstacles import (blob_concave_bl, blob_terms_bl,
                                 obstacle_curv_xy, obstacle_grad_xy,
                                 obstacle_knot_cost)
-from .batch_lane import _not_ported
 from .boxqp import solve_boxqp_2d
 from .types import SolveResult
 
@@ -251,6 +250,39 @@ def backward_pass(A, B, l_s, l_u, l_ss, l_uu, l_us, V_s, V_ss, us, lb, ub,
             torch.stack(pgs, dim=1).amax(dim=1))
 
 
+def backward_pass_parallel(A, B, l_s, l_u, l_ss, l_uu, l_us, V_s, V_ss,
+                           us, lb, ub, mu, n_sweeps: int = 8,
+                           inv_scale=None, scan=None):
+    """The exact control-limited horizon-parallel backward pass, every
+    lane at once: the O(log T) associative-scan Riccati with clamped-
+    dimension elimination, iterated to an active-set fixed point
+    (`riccati.parallel_gains_boxed`). Shapes as `backward_pass`.
+
+    It matches the sequential control-limited pass once the clamp pattern
+    is stable. The one divergence is an inflated mu after rejected steps:
+    the value recursion folds mu into l_uu (the elements need an SPD R up
+    front) while the sequential pass regularizes only each stage's QP, an
+    O(mu) difference that vanishes at the mu floor. `scan` overrides the
+    reverse scan (the time-sharded one of `parallel.sharded`)."""
+    from . import riccati
+
+    lbd = lb[:, None, :] - us
+    ubd = ub[:, None, :] - us
+    ks, Ks, Q_u, Q_uu, _ = riccati.parallel_gains_boxed(
+        A, B, l_s, l_u, l_ss, l_uu, l_us, V_s, V_ss, lbd, ubd, mu=mu,
+        n_sweeps=n_sweeps, scan=scan or riccati.reverse_scan)
+    dV1 = torch.einsum("btm,btm->bt", ks, Q_u).sum(dim=1)
+    dV2 = 0.5 * torch.einsum("btm,btmk,btk->bt", ks, Q_uu, ks).sum(dim=1)
+    dtype, dev = us.dtype, us.device
+    iscl = (torch.ones((), dtype=dtype, device=dev) if inv_scale is None
+            else torch.as_tensor(inv_scale, dtype=dtype, device=dev))
+    iscl = iscl.reshape(iscl.shape + (1, 1) * (iscl.dim() > 0))
+    lb1, ub1 = lb[:, None, :], ub[:, None, :]
+    pg = torch.abs(us - torch.clamp(us - Q_u * iscl, lb1, ub1)).amax(
+        dim=(1, 2))
+    return ks, Ks, dV1, dV2, pg
+
+
 def forward_pass_multi_alpha(ss_bar, us_bar, ks, Ks, alphas, z0, coeffs,
                              p: MPCParams, dt, lb, ub, sign, mdl: Model,
                              omap=None, blobs=None, refs=None):
@@ -310,7 +342,8 @@ def _batched(x, dtype, dev, rank: int):
 def solve(z0: torch.Tensor, coeffs: torch.Tensor, p: MPCParams,
           cfg: SolverConfig, u_init: Optional[torch.Tensor] = None,
           omap=None, blobs=None,
-          refs: Optional[torch.Tensor] = None) -> SolveResult:
+          refs: Optional[torch.Tensor] = None, *,
+          _scan=None) -> SolveResult:
     """Solve NMPC problems: z0 (B, 6), coeffs (B, P), or one problem, z0
     (6,), coeffs (P,), whose result is then unbatched. The computation
     runs on z0's device in z0's dtype.
@@ -321,7 +354,9 @@ def solve(z0: torch.Tensor, coeffs: torch.Tensor, p: MPCParams,
     (`GaussianObstacles`, leaves (B, K)) adds Gaussian obstacles; `refs`
     (B, N, 3) per-knot (ref_cte, ref_etheta, ref_vel) setpoint profiles;
     `omap` (an `ObstacleMap`: one map for every lane, or one per lane
-    with leaves (B, ...)) a grid-costmap penalty. They compose."""
+    with leaves (B, ...)) a grid-costmap penalty. They compose. `_scan`
+    is internal: `parallel.sharded` passes the time-sharded reverse scan
+    of the horizon-parallel backward."""
     global host_reads
     if cfg.ddp != "auto" and bool(cfg.ddp) and cfg.horizon_parallel:
         # the associative-scan elements need SPD stage quadratics up
@@ -329,9 +364,6 @@ def solve(z0: torch.Tensor, coeffs: torch.Tensor, p: MPCParams,
         raise ValueError(
             "SolverConfig.ddp is not supported with horizon_parallel "
             "(the scan elements need SPD stage quadratics); pick one")
-    if cfg.horizon_parallel:
-        _not_ported("the horizon-parallel backward (horizon_parallel)",
-                    "ROADMAP Queue 1, item 7")
     dtype, dev = z0.dtype, z0.device
     single = z0.dim() == 1
     z0 = _batched(z0, dtype, dev, 1)
@@ -401,7 +433,13 @@ def solve(z0: torch.Tensor, coeffs: torch.Tensor, p: MPCParams,
             ss, us, coeffs, p, dt, sign, mdl, omap, blobs, refs)
         V_s, V_ss = _terminal_expansion(
             ss[:, -1], p, omap, blobs, None if refs is None else refs[:, -1])
-        if use_ddp:
+        if cfg.horizon_parallel:
+            # the scan elements need SPD stage quadratics up front; the
+            # gated DDP contraction is sequential-path only
+            ks, Ks, dV1, dV2, pg = backward_pass_parallel(
+                A, Bm, l_s, l_u, l_ss, l_uu, l_us, V_s, V_ss, us, lb, ub,
+                mu, inv_scale=inv_scl, scan=_scan)
+        elif use_ddp:
             H = step_hessians(ss, us, coeffs, dt, sign, mdl, p)
             # obstacle ensembles cap the auto gate at 0.75 and restore the
             # blob Hessian's concave part (SolverConfig.gate_for)
@@ -477,3 +515,8 @@ def solve(z0: torch.Tensor, coeffs: torch.Tensor, p: MPCParams,
         res = SolveResult(**{f.name: getattr(res, f.name)[0]
                              for f in dataclasses.fields(res)})
     return res
+
+
+# the JAX package's jitted single-scenario entry point; the port runs eagerly,
+# so it is `solve` itself
+solve_jit = solve

@@ -199,3 +199,87 @@ def step_poses(poses: np.ndarray, cmds: np.ndarray, dt: float,
     poses[:, 1] += v * np.sin(poses[:, 2]) * dt
     poses[:, 2] += w * dt
     return np.stack([v, w], axis=1)
+
+
+def multihost_sweep_worker(rank: int, port: int, out_dir: str) -> None:
+    """One rank of the two-process gloo sweep (run by
+    `torch.multiprocessing.spawn`): `init_multihost` on the CPU, this
+    rank's scenarios from `host_local_scenarios` on a mesh of two CPU
+    entries, `sharded_sweep`, and the global statistics written to
+    `<out_dir>/rank<rank>.json`."""
+    import json
+    import os
+
+    from .config import MPCParams, SolverConfig
+    from .parallel.multihost import host_local_scenarios, init_multihost
+    from .parallel.sharded import sharded_sweep
+
+    torch.set_num_threads(1)
+    topo = init_multihost(f"127.0.0.1:{port}", num_processes=2,
+                          process_id=rank, device="cpu")
+    cpu = torch.device("cpu")
+    cfg = SolverConfig(n_steps=8, max_sqp_iters=6, tol_grad=1e-3)
+    p = MPCParams().astype(torch.float32)
+    mesh, z0s, coeffs = host_local_scenarios(0, 32, torch.float32,
+                                             device=cpu, devices=[cpu] * 2)
+    res, stats = sharded_sweep(mesh, z0s, coeffs, p, cfg)
+    out = {"topology": topo, "local_batch": int(z0s.shape[0]),
+           "shards": len(res), "z0_first": z0s[0].tolist()}
+    out.update({k: float(getattr(stats, k)) for k in (
+        "mean_cost", "max_cost", "converged_frac", "mean_iters",
+        "mean_abs_omega0", "mean_abs_accel0")})
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def shm_publish(name: str, n: int) -> None:
+    """Attach to the shared-memory topic `name` and publish n 64-byte
+    payloads, each the 8-byte counter repeated 8 times (a torn read shows
+    mixed words): the other process of the cross-process topic test."""
+    import struct
+
+    from .native import ShmTopic
+
+    t = ShmTopic(name)
+    for i in range(1, n + 1):
+        t.publish(struct.pack("<8Q", *([i] * 8)))
+    t.close()
+
+
+def node_over_shm(prefix: str, seconds: float) -> None:
+    """A `PlannerNode` with the port's planner on the CPU serving over the
+    shared-memory topics `<prefix>_pose`, `_fb`, `_cmd` and `_traj` until
+    a payload arrives on `<prefix>_stop`, or for at most `seconds`: the
+    planner process of the cross-process node test."""
+    import time
+
+    from .config import MPCParams, PlannerConfig, SolverConfig
+    from .native import ShmTopic
+    from .planner import MPCPlanner
+    from .planner.node import PlannerNode
+
+    torch.set_num_threads(1)
+    topics = {"pose": ShmTopic(prefix + "_pose"),
+              "feedback": ShmTopic(prefix + "_fb"),
+              "cmd": ShmTopic(prefix + "_cmd"),
+              "traj": ShmTopic(prefix + "_traj")}
+    stop = ShmTopic(prefix + "_stop")
+    p = MPCParams(dt=0.05, ref_vel=0.5, w_cte=300.0)
+    planner = MPCPlanner(params=p,
+                         solver_cfg=SolverConfig(n_steps=10, backward="xla"),
+                         planner_cfg=PlannerConfig(local_plan_length=2.0),
+                         device="cpu")
+    planner.initialize()
+    node = PlannerNode(planner, period_s=0.02, topics=topics)
+    xs = np.linspace(0, 5.0, 100)
+    plan = np.stack([xs, np.zeros(100), np.zeros(100)], axis=1)
+    assert node.set_plan(plan)
+    node.start()
+    t_end = time.time() + seconds
+    while time.time() < t_end and stop.read() is None:
+        time.sleep(0.05)
+    assert node.stop()
+    for t in (*topics.values(), stop):
+        t.close()
+    print("cycles", node.cycles, "errors", node.errors, flush=True)

@@ -228,15 +228,18 @@ def test_dwa_grid_costmap_matches_jax(seed):
 
 @pytest.fixture
 def jax_numpy_fit(monkeypatch):
-    """The JAX tracker with its numpy path fit (ROADMAP Queue 3 item 6)."""
-    init = jax_tracking.TrackingController.__init__
+    """The JAX tracker and the port's with their numpy path fits (ROADMAP
+    Queue 3 item 6)."""
+    import mpc_ros_tpu_torch.planner.tracking as port_tracking
 
-    def numpy_fit(self, *a, **kw):
-        init(self, *a, **kw)
-        self._native_prep = False
+    for mod in (jax_tracking, port_tracking):
+        init = mod.TrackingController.__init__
 
-    monkeypatch.setattr(jax_tracking.TrackingController, "__init__",
-                        numpy_fit)
+        def numpy_fit(self, *a, _init=init, **kw):
+            _init(self, *a, **kw)
+            self._native_prep = False
+
+        monkeypatch.setattr(mod.TrackingController, "__init__", numpy_fit)
 
 
 @pytest.mark.parametrize("kind", ["mpc", "pure_pursuit", "dwa"])

@@ -124,22 +124,30 @@ def test_random_scenarios_distribution():
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(omaps=object(), refs=object()), ValueError, "megakernel path"),
     (dict(model="tricycle"), ValueError, "lane-specialized families"),
-    (dict(solve="horizon_parallel"), NotImplementedError, "Queue 1, item 7"),
+    (dict(solve="horizon_parallel"), None, None),
     (dict(solve="horizon_parallel", ddp=True), ValueError,
      "not supported with horizon_parallel"),
 ], ids=["omaps_refs", "unknown_model", "ilqr_horizon_parallel",
         "ilqr_ddp_horizon_parallel"])
 def test_unported_paths_raise(kw, exc, match):
     """Grid obstacle maps with per-knot profiles refuse as the JAX package
-    does (grid maps themselves run: tests/test_torch_grid_solve.py); the
-    horizon-parallel backward waits for its port; a family the lane
-    stages are not specialized for raises; the single-scenario solver
-    keeps the JAX package's refusal of DDP under horizon_parallel."""
+    does (grid maps themselves run: tests/test_torch_grid_solve.py); a
+    family the lane stages are not specialized for raises; the single-
+    scenario solver keeps the JAX package's refusal of DDP under
+    horizon_parallel. The horizon-parallel backward itself is ported
+    (`exc` None: it runs and returns finite controls;
+    tests/test_torch_riccati.py holds it against JAX)."""
     z0, coeffs = numpy_scenarios(0, B)
     solve = kw.pop("solve", None)
     cfg_kw = {k: kw.pop(k) for k in ("backward", "model", "ddp") if k in kw}
     if solve is not None:
         cfg_kw["horizon_parallel"] = True
+        if exc is None:
+            res = ilqr.solve(torch.tensor(z0), torch.tensor(coeffs),
+                             MPCParams(), SolverConfig(n_steps=N, **cfg_kw))
+            assert res.us.shape == (B, N - 1, 2)
+            assert bool(torch.isfinite(res.us).all())
+            return
         with pytest.raises(exc, match=match):
             ilqr.solve(torch.tensor(z0), torch.tensor(coeffs), MPCParams(),
                        SolverConfig(n_steps=N, **cfg_kw), **kw)

@@ -13,14 +13,14 @@ against the JAX package's, in float64 on the CPU:
 * the whole infinity course in float32 (the planner's default) within
   the JAX envelope of tests/test_closed_loop.py;
 * the CLI, `python -m mpc_ros_tpu_torch.sim.run --cpu --max-cycles 5`,
-  and the entry points' refusals: no card without `device="cpu"`, and the
-  parts not ported yet.
+  and the entry points' refusals: no card without `device="cpu"`; its
+  `--realtime` pacing.
 
-The JAX tracker fits the path with its native C++ core when that builds;
-the port has the numpy fit (ROADMAP Queue 1 item 8), so each JAX planner
-here builds its tracker with `_native_prep = False` (an instance
-attribute; no JAX file changes). tests/test_torch_tracking.py bounds the
-difference the native fit makes.
+Both packages fit the path with the same native C++ core by default; each
+planner here, the JAX one and the port's, builds its tracker with
+`_native_prep = False`, the numpy fit (an instance attribute; no JAX file
+changes). tests/test_torch_tracking.py bounds the difference the native
+fit makes.
 """
 
 import subprocess
@@ -66,10 +66,13 @@ def _one_torch_thread():
         yield
 
 
-def _numpy_fit(planner: JPlanner) -> JPlanner:
-    """The JAX planner, its tracker built with the numpy path fit."""
+def _numpy_fit(planner):
+    """The planner (either package's), its tracker built with the numpy
+    path fit."""
+    make_orig = type(planner)._make_tracker
+
     def make():
-        tr = JPlanner._make_tracker(planner)
+        tr = make_orig(planner)
         tr._native_prep = False
         return tr
     planner._make_tracker = make
@@ -77,8 +80,10 @@ def _numpy_fit(planner: JPlanner) -> JPlanner:
 
 
 def _planners(leaves, n_steps, dtype=torch.float64, **plan_kw):
-    ours = MPCPlanner(MPCParams(**leaves), SolverConfig(n_steps=n_steps),
-                      PlannerConfig(**plan_kw), dtype=dtype, device="cpu")
+    ours = _numpy_fit(MPCPlanner(MPCParams(**leaves),
+                                 SolverConfig(n_steps=n_steps),
+                                 PlannerConfig(**plan_kw), dtype=dtype,
+                                 device="cpu"))
     ref = _numpy_fit(JPlanner(JMPCParams(**leaves),
                               JSolverConfig(n_steps=n_steps),
                               JPlannerConfig(**plan_kw)))
@@ -205,6 +210,7 @@ def test_square_corner_equals_jax(wrap):
     ref = JController(JMPCParams(w_cte=300.0), JSolverConfig(n_steps=10),
                       JPlannerConfig(**kw), dtype=jnp.float64)
     ref._native_prep = False
+    ours._native_prep = False
     (v, w0), dbg = ours.compute(pose, goal, 0.3, ref_plan)
     (jv, jw0), jdbg = ref.compute(pose, goal, 0.3, ref_plan)
     assert _rel((v, w0), (jv, jw0)) <= TOL_FIRST
@@ -297,12 +303,20 @@ def test_cli_prints_one_json_line():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--realtime", "--max-cycles", "1"], "item 8")])
-def test_cli_refuses_what_is_not_ported(argv, item):
+    (["--realtime", "--max-cycles", "5"], "item 8")])
+def test_cli_refuses_what_is_not_ported(argv, item, capsys):
+    """`--realtime` (ROADMAP Queue 1 `item`) is ported now: the CLI paces
+    the cycles after the first two with the native rate executor and
+    prints its statistics (tests/test_torch_node.py drives
+    `run_closed_loop(realtime=True)`)."""
+    import json
+
     from mpc_ros_tpu_torch.sim import run
 
-    with pytest.raises(NotImplementedError, match=item):
-        run.main(["--cpu"] + argv)
+    run.main(["--cpu"] + argv)
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["cycles"] == 5
+    assert rec["rate"]["cycles"] == 3
 
 
 def test_costmap_route_is_not_ported():

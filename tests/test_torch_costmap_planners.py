@@ -63,7 +63,8 @@ def straight_plan(length=6.0, n=120):
 
 
 def _numpy_fit(planner):
-    """The JAX planner, its tracker built with the numpy path fit."""
+    """The planner (either package's), its tracker built with the numpy
+    path fit."""
     make_orig = type(planner)._make_tracker
 
     def make():
@@ -81,9 +82,10 @@ def planners(kind="mpc"):
         ref = JDWAPlanner(params=JMPCParams(**LEAVES),
                           planner_cfg=JPlannerConfig(**PLAN_KW))
     else:
-        ours = MPCPlanner(MPCParams(**LEAVES), SolverConfig(n_steps=N),
-                          PlannerConfig(**PLAN_KW), dtype=torch.float64,
-                          device="cpu")
+        ours = _numpy_fit(MPCPlanner(MPCParams(**LEAVES),
+                                     SolverConfig(n_steps=N),
+                                     PlannerConfig(**PLAN_KW),
+                                     dtype=torch.float64, device="cpu"))
         ref = _numpy_fit(JPlanner(JMPCParams(**LEAVES),
                                   JSolverConfig(n_steps=N),
                                   JPlannerConfig(**PLAN_KW)))

@@ -16,7 +16,7 @@ fleet's state, so the parting does not carry into the next. Then the JAX tests' 
 on the port: robot by robot equal to the port's `MPCPlanner` (5e-3), goal
 latching and idle commands, pipelined `begin_cycle`/`finish_cycle` equal to
 sequential calls, checkpoints crossing between the two packages, and the
-raises of what is not ported.
+planner keeping a device mesh.
 """
 
 import jax.numpy as jnp
@@ -362,8 +362,12 @@ def test_what_waits_raises():
     fp.initialize(2)
     fp.set_costmaps(None)
     assert fp.world_obstacles is None
-    with pytest.raises(NotImplementedError, match="item 7"):
-        FleetPlanner(device="cpu", mesh=object())
+    # a device mesh is ported (tests/test_torch_parallel.py holds the
+    # sharded fleet to the unsharded one): the planner keeps it
+    from mpc_ros_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(n_data=2, devices=["cpu"] * 2)
+    assert FleetPlanner(device="cpu", mesh=mesh).mesh is mesh
 
 
 def test_fleet_entry_points_need_the_card_or_cpu():

@@ -187,6 +187,15 @@ def test_lean_cycles_and_sampling():
 
 
 def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 7"):
+    """A device mesh is ported (tests/test_torch_parallel.py holds the
+    sharded device cycle to the unsharded one); as in the JAX package it
+    needs the device pipeline."""
+    from mpc_ros_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(n_data=2, devices=["cpu"] * 2)
+    tr = FleetTrajectoryTracker(MPCParams(), SolverConfig(), device="cpu",
+                                pipeline="device", mesh=mesh)
+    assert tr.mesh is mesh
+    with pytest.raises(AssertionError):
         FleetTrajectoryTracker(MPCParams(), SolverConfig(), device="cpu",
-                               pipeline="device", mesh=object())
+                               mesh=mesh)

@@ -9,12 +9,11 @@ and the bicycle.
 
 Both controllers see the same inputs every cycle: the pose sequence comes
 from a plant driven by the JAX controller, so only the controllers'
-own cross-cycle state (w, throttle, the warm start) carries over. The
-JAX controller fits the path with its native C++ core when that builds;
-the port has the numpy fit only (ROADMAP Queue 1 item 8), so the JAX
-instance's `_native_prep` is set False after construction (an attribute
-of the instance; no JAX file changes), and one test leaves it on and
-bounds the difference.
+own cross-cycle state (w, throttle, the warm start) carries over. Both
+controllers fit the path with the same native C++ core by default; the
+comparisons set both instances' `_native_prep` False after construction
+(the numpy fit on both sides; an attribute of the instance, no JAX file
+changes), and one test leaves both on.
 """
 
 import jax.numpy as jnp
@@ -62,6 +61,7 @@ def _pair(leaves, model="diff_drive", native=False, **plan_kw):
                       JSolverConfig(n_steps=N, model=model),
                       JPlannerConfig(**pcfg), dtype=jnp.float64)
     ref._native_prep = native
+    ours._native_prep = native
     return ours, ref
 
 
@@ -161,6 +161,7 @@ def test_native_fit_differs_from_the_numpy_fit_by_rounding():
     except Exception as e:   # the library does not build here
         pytest.skip(f"native fit unavailable: {e}")
     ours, ref = _pair(LEAVES, native=True)
+    ours._native_prep = False
     worst = _run(ours, ref, cycles=10)
     assert ref._native_prep
     assert max(max(w.values()) for w in worst) <= TOL
