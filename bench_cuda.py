@@ -676,28 +676,39 @@ def main(argv=None) -> None:
     mean_iters = float(res.n_iters.float().mean())
 
     # the latency legs, sampled interleaved: the floor (a bare fetch), the
-    # production single solve (planner.tracking._cycle at the library's
-    # default SolverConfig: one packed upload, the warm carry on the
-    # device, one packed fetch) and the MPCPlanner cycle on the infinity
-    # course from plan[40]
+    # production single solve (`solve_jit` at the library's default
+    # SolverConfig, as planner.tracking's cycle feeds it: one packed
+    # upload through a pinned buffer, the warm carry shifted on the
+    # device, one packed fetch; on the card the captured CUDA graphs of
+    # solver/graphed.py) and the MPCPlanner cycle (captured too) on the
+    # infinity course from plan[40]
     from mpc_ros_tpu_torch.planner.planner import MPCPlanner
-    from mpc_ros_tpu_torch.planner.tracking import _cycle
+    from mpc_ros_tpu_torch.planner.tracking import pack_result
     from mpc_ros_tpu_torch.sim import get_shape
+    from mpc_ros_tpu_torch.solver import graphed
+    from mpc_ros_tpu_torch.solver.ilqr import solve_jit
 
     tiny = torch.ones(8, dtype=dtype, device=dev)
     prod_cfg = SolverConfig(n_steps=n_steps, model=args.model)
-    inp_host = np.zeros(6 + prod_cfg.n_coeffs + 1, np.float64)
+    nc = prod_cfg.n_coeffs
+    inp_host = np.zeros(6 + nc + 1, np.float64)
     inp_host[:6] = z0s[0].cpu().numpy()
-    inp_host[6: 6 + prod_cfg.n_coeffs] = coeffs[0].cpu().numpy()
-    inp_host[6 + prod_cfg.n_coeffs] = 0.5
+    inp_host[6: 6 + nc] = coeffs[0].cpu().numpy()
+    inp_host[6 + nc] = 0.5
+    stage = torch.empty(len(inp_host), dtype=dtype,
+                        pin_memory=dev.type == "cuda")
     state = {"carry": torch.zeros((prod_cfg.n_controls, 2), dtype=dtype,
                                   device=dev)}
 
     def prod_solve():
-        flat, state["carry"] = _cycle(
-            prod_cfg, torch.as_tensor(inp_host, dtype=dtype).to(dev),
-            state["carry"], p)
-        flat.cpu().numpy()
+        stage.copy_(torch.from_numpy(inp_host))
+        inp = stage.to(dev, non_blocking=True)
+        carry = state["carry"]
+        r = solve_jit(inp[:6], inp[6: 6 + nc],
+                      dataclasses.replace(p, ref_vel=inp[6 + nc]), prod_cfg,
+                      u_init=torch.cat([carry[1:], carry[-1:]]))
+        state["carry"] = r.us
+        pack_result(r).cpu().numpy()
 
     pparams = MPCParams(max_angvel=1.5, w_cte=300.0, w_angvel_d=10.0,
                         w_accel_d=10.0)
@@ -710,10 +721,16 @@ def main(argv=None) -> None:
     pose = np.array([plan[40, 0], plan[40, 1], plan[40, 2]])
     pl.set_plan(plan, pose)
 
-    # warm all three legs, then interleave
+    # warm all three legs (each captured leg's first call records its
+    # graphs), then interleave; the captures each leg made are counted
     float(tiny.sum())
+    captures = {"single_solve": graphed.captures}
     prod_solve()
+    captures["planner_cycle"] = graphed.captures
+    captures["single_solve"] = graphed.captures - captures["single_solve"]
     pl.compute_velocity_commands(pose, (0.3, 0.0))
+    captures["planner_cycle"] = graphed.captures - captures["planner_cycle"]
+    warm_captures = graphed.captures
     n_lat = 10 if args.quick else 100
     floor_ls, solve_ls, cycle_ls = [], [], []
     for i in range(n_lat):
@@ -772,6 +789,10 @@ def main(argv=None) -> None:
         "iters_max": int(it_arr.max()),
         "unconverged_ppm": int(round(1e6 * (1.0 - conv))),
         "k1_launches_per_solve": launches,
+        # CUDA-graph captures of the two latency legs (one signature each,
+        # made by its warm call) and during the timed samples (none)
+        "latency_captures": dict(captures,
+                                 timed=graphed.captures - warm_captures),
     }
     if args.obstacles_grid:
         out.update(grid_sampling=args.grid_sampling,

@@ -2215,9 +2215,12 @@ def single_scenario(dev) -> dict:
 
 
 # The single-robot closed loop (phases 24-26): no kernel on this path (the
-# JAX loop solves through `ilqr.solve` under jit, never a `pallas_call`).
-# The planner's configuration is tests/test_closed_loop.py's, at its full
-# horizon; the bars are the JAX package's envelopes.
+# JAX loop solves through `ilqr.solve` under jit, never a `pallas_call`);
+# its counterpart of jit is the captured solve (solver/graphed.py: CUDA
+# graphs replayed each cycle). The planner's configuration is
+# tests/test_closed_loop.py's, at its full horizon; the bars are the JAX
+# package's envelopes, and the cycle's p50 must fit the reference's 20 Hz
+# period (tests/test_realtime_20hz.py:30).
 LOOP_PARAMS = dict(dt=0.1, ref_vel=0.5, max_angvel=1.5, w_cte=300.0,
                    w_angvel_d=10.0, w_accel_d=10.0)
 LOOP_STEPS = 20
@@ -2231,6 +2234,13 @@ PARITY_TOL = 1e-6
 TRAJ_SPEED = 0.4
 TRAJ_CYCLES = 150
 TRAJ_MAX_DIST = 0.55
+# phase 24: the cycle's p50 bar [ms], the cycles held against the eager
+# cycle bit for bit (a reload and two costmaps of one shape among them),
+# the cycles traced, and the cycles replayed under the sync debug mode
+LOOP_P50_MS = 50.0
+LOOP_EAGER_CYCLES = 20
+LOOP_PROFILED = 20
+LOOP_SYNC_ERROR_CYCLES = 5
 
 
 def loop_planner(dev, dtype=torch.float32):
@@ -2248,19 +2258,111 @@ def cycle_ms(times_s) -> dict:
                 first=float(ms[0]))
 
 
+def captured_against_eager(dev) -> dict:
+    """Phase 24's planner through the captured cycle and through the eager
+    cycle (`_graphed = False`) in lockstep over the course's first
+    LOOP_EAGER_CYCLES cycles, a parameter reload at cycle 8, a costmap at
+    12 and one of the same shape at 16: equal bit for bit (commands, FSM
+    states, host reads, the solves' us, zs, cost and iterations); the
+    reload and the second costmap capture nothing."""
+    from mpc_ros_tpu_torch.models.obstacles import gaussian_blob_map
+    from mpc_ros_tpu_torch.sim import get_shape
+    from mpc_ros_tpu_torch.solver import graphed
+    from mpc_ros_tpu_torch.testing import lockstep_cycles, records_equal
+
+    plan = get_shape("infinity")
+    c = plan[25, :2]
+    maps = [gaussian_blob_map((float(c[0]), float(c[1]) + d), sigma=0.3,
+                              extent=8.0, weight=50.0) for d in (0.6, 0.5)]
+    ours, eager = loop_planner(dev), loop_planner(dev)
+    for pl in (ours, eager):
+        pl.initialize()
+    eager.tracker._graphed = False
+    counts = {}
+
+    def note(k):
+        def f(pl):
+            if pl is ours:
+                counts[k] = graphed.captures
+        return f
+
+    reload = MPCParams(**dict(LOOP_PARAMS, w_cte=250.0, ref_vel=0.45))
+    a, b = lockstep_cycles([ours, eager], LOOP_EAGER_CYCLES, plan=plan,
+                           events={7: note(7),
+                                   8: lambda pl: pl.reconfigure(reload),
+                                   11: note(11),
+                                   12: lambda pl: pl.set_costmap(maps[0]),
+                                   15: note(15),
+                                   16: lambda pl: pl.set_costmap(maps[1])})
+    rec = records_equal(a, b)
+    rec.update(captures_reload=counts[11] - counts[7],
+               captures_costmap=counts[15] - counts[11],
+               captures_same_shape_costmap=graphed.captures - counts[15],
+               iters=[r["solve"]["iters"] for r in a if r["solve"]])
+    if not (rec["equal"] and rec["captures_reload"] == 0
+            and rec["captures_costmap"] == 1
+            and rec["captures_same_shape_costmap"] == 0):
+        raise SystemExit(f"closed loop, captured against eager: {rec}")
+    return rec
+
+
+def loop_cycle_counts(dev) -> dict:
+    """Phase 24's cycle traced on the card (`profile_cycles`, after 5
+    cycles: the capture and warm ones): kernel and graph launches, copies
+    and syncs per cycle; then LOOP_SYNC_ERROR_CYCLES cycles under
+    `torch.cuda.set_sync_debug_mode("error")`, which raises on a
+    synchronizing call (a pageable copy, a `.item()`): the replays make
+    none (the flag and the fetch go through pinned memory and events)."""
+    from mpc_ros_tpu_torch.sim import get_shape, make_plant
+    from mpc_ros_tpu_torch.solver import ilqr
+
+    plan = get_shape("infinity")
+    pl = loop_planner(dev)
+    pl.initialize()
+    plant = make_plant("diff_drive", plan[0].copy(), 0.1, pl.params)
+    pl.set_plan(plan, plant.pose)
+    iters = []
+
+    def one():
+        ok, cmd, info = pl.compute_velocity_commands(plant.pose,
+                                                     plant.feedback_vel)
+        iters.append(info.tracking.solve.n_iters)
+        plant.step(*cmd)
+
+    for _ in range(5):
+        one()
+    iters.clear()
+    reads = ilqr.host_reads
+    out = profile_cycles(one, LOOP_PROFILED)
+    out.update(sqp_iters_per_cycle=float(np.mean(iters)),
+               host_reads_per_cycle=(ilqr.host_reads - reads) / len(iters))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(LOOP_SYNC_ERROR_CYCLES):
+            one()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    out["sync_debug_error_cycles"] = LOOP_SYNC_ERROR_CYCLES
+    return out
+
+
 def closed_loop(dev) -> dict:
     """Phase 24: `MPCPlanner` + `run_closed_loop` over the whole infinity
     course on the card in float32: the goal reached, the geometric error
     within the JAX envelope, every record finite, the planner's warm carry
-    and parameters on the card; cycles, course time, ms per cycle (the
-    planner's own clock around `compute_velocity_commands`, which ends in
-    the cycle's one fetch), SQP iterations and host reads per cycle (the
-    solver's per-iteration read of "all done", besides the cycle's one
-    packed upload and one packed fetch), the ms of each stage of one
-    iteration at N=20 (`ilqr_stage_ms`), and no kernel launched."""
+    and parameters on the card, the cycle's p50 under LOOP_P50_MS (p99
+    printed); cycles, course time, ms per cycle (the planner's own clock
+    around `compute_velocity_commands`, which ends in the cycle's one
+    fetch), SQP iterations and host reads per cycle (the solver's
+    per-iteration read of "all done", besides the cycle's one packed
+    upload and one packed fetch), the captures (one: the course's first
+    cycle), the ms of each stage of one eager iteration at N=20
+    (`ilqr_stage_ms`), and no kernel launched. Then the captured cycle
+    against the eager one (`captured_against_eager`) and the cycle's
+    launches, copies and syncs (`loop_cycle_counts`)."""
     from mpc_ros_tpu_torch.obs import RunStats
     from mpc_ros_tpu_torch.sim import get_shape, run_closed_loop
-    from mpc_ros_tpu_torch.solver import ilqr
+    from mpc_ros_tpu_torch.solver import graphed, ilqr
 
     plan = get_shape("infinity")
     planner = loop_planner(dev)
@@ -2268,8 +2370,10 @@ def closed_loop(dev) -> dict:
     planner.on_cycle = stats.record_cycle
     reset_launches()
     reads = ilqr.host_reads
+    captures = graphed.captures
     res = run_closed_loop(planner, plan, max_cycles=1200)
     reads = ilqr.host_reads - reads
+    captures = graphed.captures - captures
     d = np.array([np.min(np.hypot(plan[:, 0] - q[0], plan[:, 1] - q[1]))
                   for q in res.poses])
     tr = planner.tracker
@@ -2284,7 +2388,8 @@ def closed_loop(dev) -> dict:
         mean_iters=float(np.mean(stats.solve_iters)),
         max_iters=int(np.max(stats.solve_iters)),
         host_reads_per_solve=reads / max(stats.n_solves, 1),
-        uploads_per_solve=1, fetches_per_solve=1,
+        uploads_per_solve=1, fetches_per_solve=1, captures=captures,
+        p50_bar_ms=LOOP_P50_MS,
         carry_device=str(tr._warm_dev.device),
         params_device=str(tr.params.w_cte.device),
         kernel_launches=solve_mega.launches + backward_fused.launches
@@ -2293,11 +2398,14 @@ def closed_loop(dev) -> dict:
                                SolverConfig(n_steps=LOOP_STEPS)),
         states={s: sum(x.value == s for x in res.states)
                 for s in sorted({x.value for x in res.states})})
+    out["captured_vs_eager"] = captured_against_eager(dev)
+    out["per_cycle"] = loop_cycle_counts(dev)
     emit("closed_loop", **out)
     if not (res.reached and d.mean() < LOOP_MEAN_GEO
             and d.max() < LOOP_MAX_GEO
             and bool(np.all(np.isfinite(res.records)))
-            and tr._warm_dev.is_cuda and tr.params.w_cte.is_cuda):
+            and tr._warm_dev.is_cuda and tr.params.w_cte.is_cuda
+            and out["cycle_ms"]["p50"] < LOOP_P50_MS and captures == 1):
         raise SystemExit(f"closed loop on the card: {out}")
     return out
 
@@ -2512,10 +2620,12 @@ def fleet_rate(times_s, B: int) -> dict:
 
 def profile_cycles(fn, n: int) -> dict:
     """`n` calls of `fn` traced by `torch.profiler` (CPU and CUDA): per
-    call the kernel launches, host-to-device and device-to-host copies,
-    stream and device synchronizations (less those of an empty trace: the
-    profiler's own), and the device time (the CUDA kernels' and copies'
-    own time; None when the trace holds none)."""
+    call the kernel launches, CUDA-graph launches, host-to-device and
+    device-to-host copies (as the device ran them, inside a graph or
+    not), stream and device synchronizations and event synchronizations
+    (less those of an empty trace: the profiler's own), and the device
+    time (the CUDA kernels' and copies' own time; None when the trace
+    holds none)."""
     from torch.profiler import ProfilerActivity, profile
 
     def trace(k):
@@ -2538,7 +2648,9 @@ def profile_cycles(fn, n: int) -> dict:
             h2d_copies=count(lambda k: "HtoD" in k),
             d2h_copies=count(lambda k: "DtoH" in k),
             syncs=count(lambda k: k in ("cudaStreamSynchronize",
-                                        "cudaDeviceSynchronize")))
+                                        "cudaDeviceSynchronize")),
+            graph_launches=count(lambda k: k == "cudaGraphLaunch"),
+            event_syncs=count(lambda k: k == "cudaEventSynchronize"))
 
     own = trace(0)[2]
     wall, ev, got = trace(n)
@@ -3610,11 +3722,13 @@ def node_realtime(dev) -> dict:
     RecoverySupervisor) at the reference's dt = 0.05 with
     tests/test_realtime_20hz.py's planner (N=20), course segment
     (infinity[:160]) and plant loop (integrated over the real elapsed
-    time), its planner on the card: the rate executor's statistics, the
-    course's completion and the errors printed. Gated on finite commands
-    and a clean stop(); the overruns, the errors and the monitor's faults
-    are printed, not gated: the cycle is several times the period
-    (ROADMAP Queue 3 item 8), which they measure."""
+    time), its planner on the card, its cycle a captured solve: the two
+    warm calls before `node.start()` capture it (one capture), the paced
+    loop captures nothing. Gated on finite commands, a clean stop() and
+    the bars of tests/test_realtime_20hz.py:83-108: the course reached or
+    ended < 0.3 m from the goal, no latched fault, at most 2 budget
+    failures in all and in a row, no node error, at least 100 cycles,
+    overruns <= 5% of them and the worst lateness < 400 ms."""
     import struct
 
     from mpc_ros_tpu_torch.planner import (MPCPlanner, RecoverySupervisor,
@@ -3622,6 +3736,7 @@ def node_realtime(dev) -> dict:
     from mpc_ros_tpu_torch.planner.node import (TWIST_FMT, PlannerNode,
                                                 pack_pose, pack_twist)
     from mpc_ros_tpu_torch.sim import get_shape
+    from mpc_ros_tpu_torch.solver import graphed
 
     p = MPCParams(dt=NODE_DT, ref_vel=0.5, w_cte=300.0, w_angvel_d=10.0,
                   w_accel_d=10.0, max_angvel=1.5)
@@ -3641,11 +3756,14 @@ def node_realtime(dev) -> dict:
     node.feedback_topic.publish(pack_twist(*vel))
     if not node.set_plan(plan):
         raise SystemExit("node_realtime: the plan was refused")
-    # the cold and the first warm cycle outside the paced loop
+    # the cold and the first warm cycle outside the paced loop: the first
+    # captures the cycle, the second replays it
+    captures = graphed.captures
     t0 = time.perf_counter()
     planner.compute_velocity_commands(pose, vel)
     planner.compute_velocity_commands(pose, vel)
     warm_s = time.perf_counter() - t0
+    warm_captures = graphed.captures - captures
     node.start()
     reached, cmds = False, []
     t_end = time.time() + NODE_SECONDS
@@ -3680,9 +3798,21 @@ def node_realtime(dev) -> dict:
                safety=dataclasses.asdict(safety.status),
                recovery=dataclasses.asdict(recovery.stats),
                commands_read=len(cmds), warm_up_s=warm_s, stopped=stopped,
+               warm_captures=warm_captures,
+               loop_captures=graphed.captures - captures - warm_captures,
                carry_device=str(planner.tracker._warm_dev.device))
+    st = safety.status
+    out["bars"] = bars = dict(
+        course=reached or out["dist_to_goal_m"] < 0.3,
+        no_fault=st.fault is False, failures=st.total_failures <= 2,
+        streak=st.max_consecutive_failures <= 2, errors=node.errors == 0,
+        cycles=rs["cycles"] >= 100,
+        overruns=rs["overruns"] <= 0.05 * rs["cycles"],
+        lateness=rs["worst_late_ms"] < 400.0,
+        captures=warm_captures == 1 and out["loop_captures"] == 0)
     emit("node_realtime", **out)
-    if not (stopped and cmds and np.isfinite(np.asarray(cmds)).all()):
+    if not (stopped and cmds and np.isfinite(np.asarray(cmds)).all()
+            and all(bars.values())):
         raise SystemExit(f"node_realtime: {out}")
     return out
 

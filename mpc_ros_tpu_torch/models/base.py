@@ -32,6 +32,8 @@ from typing import Callable, Dict
 
 import torch
 
+from ..ops.consts import const
+
 Fn = Callable
 
 
@@ -157,7 +159,7 @@ def make_jacobians(step: Fn) -> Fn:
         batch = torch.broadcast_shapes(z.shape[:-1], u.shape[:-1])
         z = z.expand(batch + z.shape[-1:])
         u = u.expand(batch + u.shape[-1:])
-        dt = torch.as_tensor(dt, dtype=z.dtype, device=z.device)
+        dt = const(dt, z.dtype, z.device)
         return lane_map(lambda c, d, pp, zz, uu: single(c, d, pp, zz, uu,
                                                         sign),
                         batch, coeffs, dt, p, z, u)

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.consts import const
 from ..ops.poly import polyder_eval, polyeval
 from .base import Model, make_aug, register_model
 
@@ -33,8 +34,8 @@ def step(z: torch.Tensor, u: torch.Tensor, coeffs: torch.Tensor, dt,
     x, y, psi, v, cte, epsi = (z[..., i] for i in range(6))
     delta = u[..., DELTA]
     accel = u[..., ACCEL]
-    dt = torch.as_tensor(dt, dtype=z.dtype, device=z.device)
-    lf = torch.as_tensor(p.lf, dtype=z.dtype, device=z.device)
+    dt = const(dt, z.dtype, z.device)
+    lf = const(p.lf, z.dtype, z.device)
     f0 = polyeval(coeffs, x)
     dpsi = v / lf * delta * dt
     return torch.stack([
@@ -60,8 +61,8 @@ def step_jacobians(z, u, coeffs, dt, sign, p):
     ce = torch.cos(epsi)
     se = torch.sin(epsi)
     fp = polyder_eval(coeffs, x)
-    dt = torch.as_tensor(dt, dtype=z.dtype, device=z.device)
-    lf = torch.as_tensor(p.lf, dtype=z.dtype, device=z.device)
+    dt = const(dt, z.dtype, z.device)
+    lf = const(p.lf, z.dtype, z.device)
     k = dt / lf                    # psi' / epsi' sensitivity scale
     dk_dv = delta * k              # d(v / lf * delta * dt) / dv
     dk_dd = v * k                  # d(.) / d delta
@@ -97,8 +98,8 @@ def step_jacobians(z, u, coeffs, dt, sign, p):
 def control_bounds(p, dtype, device=None):
     """(lb, ub) for (delta, accel): (2,) for shared limits, (2, B) when
     either limit is a per-scenario (B,) leaf."""
-    ms = torch.as_tensor(p.max_steer, dtype=dtype, device=device)
-    mt = torch.as_tensor(p.max_throttle, dtype=dtype, device=device)
+    ms = const(p.max_steer, dtype, device)
+    mt = const(p.max_throttle, dtype, device)
     ms, mt = torch.broadcast_tensors(ms, mt)
     lb = torch.stack([-ms, -mt])
     return lb, -lb

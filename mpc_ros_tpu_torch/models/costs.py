@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.consts import const
 from .diff_drive import AUG_STATE_DIM, CONTROL_DIM, CTE, ETHETA, STATE_DIM, V
 
 
@@ -36,9 +37,7 @@ def _ref3_cols(p, ref3):
 def _vec(entries, dtype, device):
     """A (..., len(entries)) tensor from scalars or tensors, zeros where an
     entry is None, the leading dims broadcast."""
-    ts = [None if e is None else torch.as_tensor(e, dtype=dtype,
-                                                  device=device)
-          for e in entries]
+    ts = [None if e is None else const(e, dtype, device) for e in entries]
     shape = torch.broadcast_shapes(*[t.shape for t in ts if t is not None])
     zero = torch.zeros(shape, dtype=dtype, device=device)
     return torch.stack([zero if t is None else t.expand(shape) for t in ts],
@@ -116,7 +115,7 @@ def stage_expansion_aug(s: torch.Tensor, u: torch.Tensor, rate_on, p,
     wz, ref = state_weights(p, dtype, dev)
     if ref3 is not None:
         ref = ref_state_vector(p, dtype, ref3, device=dev)
-    rate_on = torch.as_tensor(rate_on, dtype=dtype, device=dev)
+    rate_on = const(rate_on, dtype, dev)
     wu = _vec([p.w_angvel, p.w_accel], dtype, dev)
     wd = rate_on[..., None] * _vec([p.w_angvel_d, p.w_accel_d], dtype, dev)
 
@@ -152,7 +151,7 @@ def weight_scale(p, dtype, device=None) -> torch.Tensor:
     per-lane (B,) following the param leaves' shape. Scaling the solver's
     absolute knobs by s makes uniformly up-scaled problems solve with the
     c=1 iterates; down-scaled weights keep the absolute mu floor."""
-    leaves = [torch.as_tensor(w, dtype=dtype, device=device)
+    leaves = [const(w, dtype, device)
               for w in (p.w_cte, p.w_etheta, p.w_vel, p.w_angvel, p.w_accel,
                         p.w_angvel_d, p.w_accel_d)]
     s = leaves[0]
@@ -171,7 +170,7 @@ def scaled_solver_knobs(cfg, p, dtype, device=None,
     under `cfg.scale_adaptive`; the absolute knobs, None and 1 without
     it."""
     def t(x):
-        return torch.as_tensor(x, dtype=dtype, device=device)
+        return const(x, dtype, device)
 
     mu_min = t(cfg.mu_init_for(dtype, has_obstacles, has_omaps))
     mu_max = t(cfg.mu_max)

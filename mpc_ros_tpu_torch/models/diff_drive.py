@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.consts import const
 from ..ops.poly import polyder_eval, polyeval
 from .base import Model, make_aug, register_model
 
@@ -64,7 +65,7 @@ def step_jacobians(z: torch.Tensor, u: torch.Tensor, coeffs: torch.Tensor,
     ce = torch.cos(etheta)
     se = torch.sin(etheta)
     fp = polyder_eval(coeffs, x)
-    dt = torch.as_tensor(dt, dtype=z.dtype, device=z.device)
+    dt = const(dt, z.dtype, z.device)
     shape = torch.broadcast_shapes(x.shape, fp.shape, dt.shape)
     zero = torch.zeros(shape, dtype=z.dtype, device=z.device)
     one = torch.ones_like(zero)
@@ -121,8 +122,8 @@ def aug_step_jacobians(s: torch.Tensor, u: torch.Tensor,
 def control_bounds(p, dtype, device=None):
     """(lb, ub) for (omega, accel): (2,) for shared limits, (2, B) when
     either limit is a per-scenario (B,) leaf."""
-    mw = torch.as_tensor(p.max_angvel, dtype=dtype, device=device)
-    mt = torch.as_tensor(p.max_throttle, dtype=dtype, device=device)
+    mw = const(p.max_angvel, dtype, device)
+    mt = const(p.max_throttle, dtype, device)
     mw, mt = torch.broadcast_tensors(mw, mt)
     lb = torch.stack([-mw, -mt])
     return lb, -lb

@@ -35,6 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops.consts import const
 from ..ops.linspace import linspace
 
 
@@ -537,8 +538,7 @@ class GaussianObstacles:
         rotated and translated (isotropic gamma and w do not change), with
         the tracking controller's convention x_veh = dx ct + dy st,
         y_veh = dy ct - dx st."""
-        px, py, yaw = (torch.as_tensor(pose[i], dtype=self.cx.dtype,
-                                       device=self.cx.device)
+        px, py, yaw = (const(pose[i], self.cx.dtype, self.cx.device)
                        for i in range(3))
         ct, st = torch.cos(yaw), torch.sin(yaw)
         dx = self.cx - px

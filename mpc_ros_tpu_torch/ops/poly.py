@@ -10,10 +10,12 @@ from __future__ import annotations
 
 import torch
 
+from .consts import const
+
 
 def _zeros_like_broadcast(coeffs: torch.Tensor, x) -> torch.Tensor:
     c0 = coeffs[..., 0]
-    x = torch.as_tensor(x, dtype=c0.dtype, device=c0.device)
+    x = const(x, c0.dtype, c0.device)
     return torch.zeros(torch.broadcast_shapes(c0.shape, x.shape),
                        dtype=c0.dtype, device=c0.device)
 

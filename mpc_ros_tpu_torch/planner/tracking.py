@@ -6,13 +6,24 @@ Per cycle, on the host in float64 numpy: the reference-speed schedule
 robot transform of the downsampled plan, the cubic fit, cte = f(0), the
 heading error by the 30% lookahead with the reference's 0 -> 2 pi shim
 (wrapped to [-pi, pi] unless `wrap_etheta=False`), and the optional
-one-step delay prediction. Then one solve on the device (`_cycle`, a plain
-function around `solver/ilqr.py::solve`) with the JAX package's transfer
-diet: one packed upload of (6 + C + 1,) — state, coefficients, the
-scheduled ref_vel — the previous optimum kept on the device as the warm
-carry and shifted there, and one packed fetch of us, zs, cost, converged,
-iterations, grad and reg. No parameter leaf is read back per cycle: the
-host math reads the numpy twin of the parameters (`_host_twin`).
+one-step delay prediction. Then one solve on the device with the JAX
+package's transfer diet: one packed upload of (6 + C + 1,) — state,
+coefficients, the scheduled ref_vel — the previous optimum kept on the
+device as the warm carry and shifted there, and one packed fetch of us,
+zs, cost, converged, iterations, grad and reg. No parameter leaf is read
+back per cycle: the host math reads the numpy twin of the parameters
+(`_host_twin`).
+
+The solve is the counterpart of JAX's `_cycle_jit`: a `CapturedSolve`
+(`solver/graphed.py`, built by `captured_cycle`) per signature (which of
+blobs and costmap are present, and the leaves' shapes), on the card three
+CUDA graphs replayed each cycle, its packed input staged through pinned
+memory, the warm carry a device buffer written in place (`reset` zeroes
+it: a zero carry is the cold start), the parameter, blob and costmap
+leaves copied into the captured buffers when they change, so that
+`update_params` (in place) and a new costmap of the same shape need no
+recapture. On the CPU the same bodies run eagerly. The private
+`_graphed = False` runs the eager `_cycle` instead, for comparison.
 
 The path fit runs in the native C++ core (`native.plan_fit`: the
 transform, a Householder-QR fit, cte and the lookahead heading; the same
@@ -35,7 +46,7 @@ import torch
 
 from ..config import MPCParams, PlannerConfig, SolverConfig
 from ..models.base import get_model
-from ..solver import ilqr
+from ..solver import graphed, ilqr
 from ..solver.types import SolveResult
 from .fsm import normalize_angle
 from .plan_utils import lookahead_heading
@@ -79,19 +90,86 @@ def pack_result(r: SolveResult) -> torch.Tensor:
                      r.grad_norm, r.reg])])
 
 
-def _cycle(cfg: SolverConfig, inp: torch.Tensor, prev_us: torch.Tensor,
-           p: MPCParams, blobs=None, omap=None):
-    """One tracking solve on the device: inp (6 + C + 1,) = state,
-    coefficients and ref_vel; the warm start is the previous optimum
-    shifted by one knot (a zero carry is the cold start: the warm start
-    clips to the same zeros). `blobs` and `omap` are the robot-frame
-    obstacles. Returns (the packed result, the new carry)."""
+def _unpack_tracking(cfg: SolverConfig):
+    """The tracking cycle's packed input: inp (6 + C + 1,) = state,
+    coefficients and ref_vel -> (z0, coeffs, p, refs)."""
     nc = cfg.n_coeffs
-    p = dataclasses.replace(p, ref_vel=inp[6 + nc])
-    u_init = torch.cat([prev_us[1:], prev_us[-1:]])
-    r = ilqr.solve(inp[:6], inp[6: 6 + nc], p, cfg, u_init=u_init,
-                   omap=omap, blobs=blobs)
+
+    def unpack(inp, p):
+        return (inp[:6], inp[6: 6 + nc],
+                dataclasses.replace(p, ref_vel=inp[6 + nc]), None)
+
+    return unpack
+
+
+def _shifted(prev_us: torch.Tensor) -> torch.Tensor:
+    """The warm start: the previous optimum shifted by one knot, its last
+    control held (a zero carry is the cold start: the warm start clips to
+    the same zeros)."""
+    return torch.cat([prev_us[1:], prev_us[-1:]])
+
+
+def _cycle(cfg: SolverConfig, inp: torch.Tensor, prev_us: torch.Tensor,
+           p: MPCParams, blobs=None, omap=None, unpack=None):
+    """One single-robot solve on the device, eagerly: the packed input as
+    `unpack` reads it (by default the tracking cycle's), the warm start
+    shifted from the previous optimum; `blobs` and `omap` are the
+    robot-frame obstacles. Returns (the packed result, the new carry)."""
+    z0, coeffs, p, refs = (unpack or _unpack_tracking(cfg))(inp, p)
+    r = ilqr.solve(z0, coeffs, p, cfg, u_init=_shifted(prev_us), omap=omap,
+                   blobs=blobs, refs=refs)
     return pack_result(r), r.us
+
+
+def captured_cycle(cfg: SolverConfig, carry: torch.Tensor, params,
+                   blobs, omap, n_inp: int,
+                   unpack) -> graphed.CapturedSolve:
+    """A single-robot cycle as a `CapturedSolve`: the static packed input
+    "inp" (n_inp,), the warm carry (the caller's (T, 2) tensor: shifted by
+    one knot into the warm start, overwritten with the new optimum in
+    place), and buffers for the leaves of `params`, `blobs` and `omap`
+    (None: absent); `unpack(inp, p) -> (z0, coeffs, p, refs)`. Its one
+    output, "flat", is the packed result (`pack_result`)."""
+    dtype, dev = carry.dtype, carry.device
+    inputs = {"inp": torch.empty((n_inp,), dtype=dtype, device=dev),
+              "carry": carry}
+    for prefix, obj in (("p", params), ("blobs", blobs), ("omap", omap)):
+        if obj is not None:
+            inputs.update(graphed.leaf_buffers(prefix, obj, dtype, dev))
+
+    def prologue(b):
+        z0, coeffs, p, refs = unpack(b["inp"], graphed.rebuild("p", params,
+                                                               b))
+        return ilqr.prepare(z0, coeffs, p, cfg, u_init=_shifted(b["carry"]),
+                            omap=graphed.rebuild("omap", omap, b),
+                            blobs=graphed.rebuild("blobs", blobs, b),
+                            refs=refs)
+
+    def epilogue(b, prob, st):
+        r = ilqr.result(prob, st)
+        b["carry"].copy_(r.us)
+        return {"flat": pack_result(r)}
+
+    return graphed.CapturedSolve(cfg, dev, inputs, prologue, epilogue)
+
+
+def run_captured(entries: dict, cfg: SolverConfig, carry: torch.Tensor,
+                 inp: np.ndarray, params, blobs, omap,
+                 unpack) -> np.ndarray:
+    """One cycle through the `CapturedSolve` of its signature in `entries`
+    (made on first use): the packed input, the changed leaves loaded, the
+    solve, the packed result fetched to the host."""
+    key = (cfg, graphed.leaf_signature(params),
+           graphed.leaf_signature(blobs), graphed.leaf_signature(omap))
+    entry = entries.get(key)
+    if entry is None:
+        entry = entries[key] = captured_cycle(cfg, carry, params, blobs,
+                                              omap, len(inp), unpack)
+    entry.load("inp", inp)
+    for prefix, obj in (("p", params), ("blobs", blobs), ("omap", omap)):
+        if obj is not None:
+            entry.load_leaves(prefix, obj)
+    return entry.fetch("flat", entry.run()["flat"])
 
 
 @dataclasses.dataclass
@@ -119,13 +197,21 @@ class TrackingController:
         # the family's yaw_rate maps (v, first control) to the heading rate
         # of the delay-mode prediction
         self.model = get_model(solver_cfg.model)
+        self.params = None
         self.update_params(params)
         self.w = 0.0
         self.speed = 0.0
         self.throttle = 1.0
         self._warm_us: Optional[np.ndarray] = None
-        # the previous optimum, kept on the device between cycles
-        self._warm_dev = None
+        # the previous optimum, kept on the device between cycles and
+        # written in place (zeros: the cold start)
+        self._warm_dev = torch.zeros((solver_cfg.n_controls, 2),
+                                     dtype=dtype, device=self.device)
+        # the captured solves, one per signature (`run_captured`); False
+        # runs the eager `_cycle` (a comparison the tests and the smoke
+        # make; nothing on the main path sets it)
+        self._captured: dict = {}
+        self._graphed = True
         # robot-frame GaussianObstacles (leaves (K,)), set per cycle by
         # the embedder (MPCPlanner)
         self.obstacles = None
@@ -141,7 +227,7 @@ class TrackingController:
         self.throttle = 1.0
         self.ref_vel = float(self._np_params.ref_vel)
         self._warm_us = None
-        self._warm_dev = None
+        self._warm_dev.zero_()
 
     @property
     def obstacle_map(self):
@@ -160,9 +246,26 @@ class TrackingController:
                           else omap.for_solver(self.dtype, self.device))
 
     def update_params(self, params: MPCParams) -> None:
-        """Hot-reload the solver parameters: new leaves on the device and a
-        new numpy twin, nothing rebuilt."""
-        self.params = params.astype(self.dtype, self.device)
+        """Hot-reload the solver parameters: the new values copied into the
+        device leaves in place (a leaf whose shape changes is replaced, a
+        new signature for the captured solve) and a new numpy twin,
+        nothing rebuilt."""
+        new = params.astype(self.dtype, self.device)
+        if self.params is None:
+            # leaves of our own: a reload writes them in place
+            self.params = MPCParams(**{
+                f.name: getattr(new, f.name).clone()
+                for f in dataclasses.fields(new)})
+        else:
+            kept = {}
+            for f in dataclasses.fields(new):
+                old, v = getattr(self.params, f.name), getattr(new, f.name)
+                if old.shape == v.shape:
+                    old.copy_(v)
+                    kept[f.name] = old
+                else:
+                    kept[f.name] = v.clone()
+            self.params = MPCParams(**kept)
         self._np_params = _host_twin(params, self.dtype)
         self.ref_vel = float(self._np_params.ref_vel)
 
@@ -274,13 +377,17 @@ class TrackingController:
 
         cfg = self.solver_cfg
         inp = np.concatenate([state, coeffs, [ref_vel_eff]])
-        if self._warm_dev is None:
-            self._warm_dev = torch.zeros((cfg.n_controls, 2),
-                                         dtype=self.dtype, device=self.device)
-        flat, self._warm_dev = _cycle(
-            cfg, torch.tensor(inp, dtype=self.dtype, device=self.device),
-            self._warm_dev, self.params, self.obstacles, self._omap)
-        res = unpack_cycle(flat.cpu().numpy().astype(float), cfg)
+        if self._graphed and graphed.capturable(cfg):
+            flat = run_captured(self._captured, cfg, self._warm_dev, inp,
+                                self.params, self.obstacles, self._omap,
+                                _unpack_tracking(cfg))
+        else:
+            flat_t, us = _cycle(
+                cfg, torch.tensor(inp, dtype=self.dtype, device=self.device),
+                self._warm_dev, self.params, self.obstacles, self._omap)
+            self._warm_dev.copy_(us)
+            flat = flat_t.cpu().numpy()
+        res = unpack_cycle(flat.astype(float), cfg)
         self._warm_us = res.us
 
         self.w = float(res.us[0, 0])

@@ -10,8 +10,12 @@ catch-up on the longitudinal lag, and solves with that profile as the
 per-knot setpoints (`refs`, and optional robot-frame blobs) through
 `solver/ilqr.py::solve`, with the path tracker's transfer diet: one packed
 upload of (6 + C + N,), the warm carry kept on the device, one packed
-fetch (`_single_cycle`). The sampling and the fit are host numpy. The
-tracker runs on the card unless built with `device="cpu"`.
+fetch. The solve is the counterpart of JAX's `_single_cycle_jit`: a
+`CapturedSolve` per signature (`tracking.captured_cycle`: CUDA graphs on
+the card, the same bodies called eagerly on the CPU; the private
+`_graphed = False` runs the eager `tracking._cycle`). The sampling and the
+fit are host numpy. The tracker runs on the card unless built with
+`device="cpu"`.
 
 `FleetTrajectoryTracker` (counterpart of the fleet half of the JAX
 module) runs the same cycle for B robots with one batched solve through
@@ -36,29 +40,28 @@ import torch
 from ..config import MPCParams, PlannerConfig, SolverConfig
 from ..models.base import get_model
 from ..models.obstacles import GaussianObstacles
-from ..solver import ilqr
+from ..solver import graphed, ilqr
 from ..solver.batch_lane import batch_solve_lane
 from .fleet import _blobs_to_frames, fetch, upload
 from .fleet_device import _chol_solve_small
 from .fsm import normalize_angle
-from .tracking import _host_twin, pack_result, resolve_device, unpack_cycle
+from .tracking import (_cycle, _host_twin, resolve_device, run_captured,
+                       unpack_cycle)
 
 
-def _single_cycle(cfg: SolverConfig, inp: torch.Tensor,
-                  prev_us: torch.Tensor, p: MPCParams, blobs=None):
-    """One trajectory solve on the device: inp (6 + C + N,) = state,
-    coefficients and the per-knot speed profile; the cte and etheta
-    setpoint columns are zeros built here. The warm start is the previous
-    optimum shifted by one knot (a zero carry is the cold start). Returns
-    (the packed result, the new carry)."""
+def _unpack_trajectory(cfg: SolverConfig):
+    """The trajectory cycle's packed input: inp (6 + C + N,) = state,
+    coefficients and the per-knot speed profile -> (z0, coeffs, p, refs);
+    the cte and etheta setpoint columns are zeros built here."""
     nc = cfg.n_coeffs
-    v_ref = inp[6 + nc:]
-    zero = torch.zeros_like(v_ref)
-    refs = torch.stack([zero, zero, v_ref], dim=-1)
-    u_init = torch.cat([prev_us[1:], prev_us[-1:]])
-    r = ilqr.solve(inp[:6], inp[6: 6 + nc], p, cfg, u_init=u_init,
-                   refs=refs, blobs=blobs)
-    return pack_result(r), r.us
+
+    def unpack(inp, p):
+        v_ref = inp[6 + nc:]
+        zero = torch.zeros_like(v_ref)
+        return (inp[:6], inp[6: 6 + nc], p,
+                torch.stack([zero, zero, v_ref], dim=-1))
+
+    return unpack
 
 
 @dataclasses.dataclass
@@ -160,7 +163,14 @@ class TrajectoryTracker:
         self.w = 0.0
         self.speed = 0.0
         self._warm_us: Optional[np.ndarray] = None
-        self._warm_dev = None
+        # the previous optimum on the device, written in place (zeros:
+        # the cold start)
+        self._warm_dev = torch.zeros((solver_cfg.n_controls, 2),
+                                     dtype=dtype, device=self.device)
+        # the captured solves per signature; False runs the eager
+        # `tracking._cycle`
+        self._captured: dict = {}
+        self._graphed = True
         self.world_obstacles = None
 
     def set_obstacles(self, blobs) -> None:
@@ -173,7 +183,7 @@ class TrajectoryTracker:
         self.w = 0.0
         self.speed = 0.0
         self._warm_us = None
-        self._warm_dev = None
+        self._warm_dev.zero_()
 
     def finished(self, t_now: float, pose: np.ndarray) -> bool:
         """Past the schedule's end and inside the xy goal tolerance of its
@@ -230,16 +240,21 @@ class TrajectoryTracker:
 
         state = np.array([0.0, 0.0, 0.0, v, cte, etheta])
         inp = np.concatenate([state, coeffs, v_ref])
-        if self._warm_dev is None:
-            self._warm_dev = torch.zeros((cfg.n_controls, 2),
-                                         dtype=self.dtype, device=self.device)
         # robot-frame blobs; the solve moves them to its dtype and device
         blobs = (None if self.world_obstacles is None
                  else self.world_obstacles.to_frame((px, py, theta)))
-        flat, self._warm_dev = _single_cycle(
-            cfg, torch.tensor(inp, dtype=self.dtype, device=self.device),
-            self._warm_dev, self.params, blobs)
-        res = unpack_cycle(flat.cpu().numpy().astype(float), cfg)
+        if self._graphed and graphed.capturable(cfg):
+            flat = run_captured(self._captured, cfg, self._warm_dev, inp,
+                                self.params, blobs, None,
+                                _unpack_trajectory(cfg))
+        else:
+            flat_t, us = _cycle(
+                cfg, torch.tensor(inp, dtype=self.dtype, device=self.device),
+                self._warm_dev, self.params, blobs,
+                unpack=_unpack_trajectory(cfg))
+            self._warm_dev.copy_(us)
+            flat = flat_t.cpu().numpy()
+        res = unpack_cycle(flat.astype(float), cfg)
         self._warm_us = res.us
 
         self.w = float(res.us[0, 0])

@@ -16,6 +16,7 @@ combination instead; this one is the single-scenario solver's.
 
 from __future__ import annotations
 
+import functools
 import itertools
 
 import torch
@@ -24,9 +25,15 @@ import torch
 _COMBOS = list(itertools.product(range(3), repeat=2))
 
 
-def _table(side, dtype, device):
-    return torch.tensor([[1.0 if s == side else 0.0 for s in c]
-                         for c in _COMBOS], dtype=dtype, device=device)
+@functools.lru_cache(maxsize=None)
+def _tables(dtype, device):
+    """The (9, 2) free / at-lower / at-upper indicator tables, built once
+    per (dtype, device): a table built per call is a copy from pageable
+    host memory per stage and iteration, which syncs the stream (and
+    cannot be captured in a CUDA graph)."""
+    return tuple(torch.tensor([[1.0 if s == side else 0.0 for s in c]
+                               for c in _COMBOS], dtype=dtype, device=device)
+                 for side in range(3))
 
 
 def inv2(M: torch.Tensor) -> torch.Tensor:
@@ -51,9 +58,7 @@ def solve_boxqp_2d(Q: torch.Tensor, q: torch.Tensor, lb: torch.Tensor,
     is the inverse of the masked system, so that the gain rows of clamped
     dimensions come out zero: K = Minv @ (-(free * Qus))."""
     dtype, dev = Q.dtype, Q.device
-    f = _table(0, dtype, dev)                        # (9, 2)
-    at_lo = _table(1, dtype, dev)
-    at_hi = _table(2, dtype, dev)
+    f, at_lo, at_hi = _tables(dtype, dev)           # (9, 2) each
     Qc = Q[..., None, :, :]                          # (..., 1, 2, 2)
     qc = q[..., None, :]
     lbc = lb[..., None, :]

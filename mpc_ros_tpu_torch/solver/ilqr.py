@@ -43,6 +43,7 @@ from ..models.costs import (ref_state_vector, scaled_solver_knobs,
 from ..models.obstacles import (blob_concave_bl, blob_terms_bl,
                                 obstacle_curv_xy, obstacle_grad_xy,
                                 obstacle_knot_cost)
+from ..ops.consts import const
 from .boxqp import solve_boxqp_2d
 from .types import SolveResult
 
@@ -339,25 +340,71 @@ def _batched(x, dtype, dev, rank: int):
     return x[None] if x.dim() == rank else x
 
 
-def solve(z0: torch.Tensor, coeffs: torch.Tensor, p: MPCParams,
-          cfg: SolverConfig, u_init: Optional[torch.Tensor] = None,
-          omap=None, blobs=None,
-          refs: Optional[torch.Tensor] = None, *,
-          _scan=None) -> SolveResult:
-    """Solve NMPC problems: z0 (B, 6), coeffs (B, P), or one problem, z0
-    (6,), coeffs (P,), whose result is then unbatched. The computation
-    runs on z0's device in z0's dtype.
+@dataclasses.dataclass
+class Problem:
+    """What every SQP iteration of one solve reads and never writes: the
+    inputs as the solver holds them and the constants built once per solve
+    (bounds, tolerances, the scaled knobs, the step sizes, the DDP gate).
+    Every tensor is built without a host-to-device copy (`ops.consts`), so
+    a solve's only host traffic is the per-iteration read of "all done"."""
 
-    `p`'s leaves are shared (floats or 0-d tensors) or per scenario ((B,)).
-    `u_init` (B, T, 2) warm-starts (clipped to the bounds); None is the
-    cold start, the plant rolled under zero controls. `blobs`
-    (`GaussianObstacles`, leaves (B, K)) adds Gaussian obstacles; `refs`
-    (B, N, 3) per-knot (ref_cte, ref_etheta, ref_vel) setpoint profiles;
-    `omap` (an `ObstacleMap`: one map for every lane, or one per lane
-    with leaves (B, ...)) a grid-costmap penalty. They compose. `_scan`
-    is internal: `parallel.sharded` passes the time-sharded reverse scan
-    of the horizon-parallel backward."""
-    global host_reads
+    z0: torch.Tensor
+    coeffs: torch.Tensor
+    p: MPCParams
+    cfg: SolverConfig
+    mdl: Model
+    dt: torch.Tensor
+    sign: float
+    lb: torch.Tensor
+    ub: torch.Tensor
+    omap: object
+    blobs: object
+    refs: Optional[torch.Tensor]
+    use_ddp: bool
+    n_ls: int
+    tol_grad: torch.Tensor
+    tol_cost: torch.Tensor
+    mu_min: torch.Tensor
+    mu_max: torch.Tensor
+    inv_scl: Optional[torch.Tensor]
+    cost_guard: torch.Tensor
+    mu_factor: torch.Tensor
+    alphas: torch.Tensor
+    gate: torch.Tensor
+    rank: torch.Tensor
+    ar: torch.Tensor
+    single: bool
+    scan: object = None
+
+
+@dataclasses.dataclass
+class State:
+    """The SQP loop's carry, one entry per lane."""
+
+    ss: torch.Tensor
+    us: torch.Tensor
+    cost: torch.Tensor
+    mu: torch.Tensor
+    it: torch.Tensor
+    done: torch.Tensor
+    gnorm: torch.Tensor
+    n_small: torch.Tensor
+    conv: torch.Tensor
+
+    def copy_(self, other: "State") -> None:
+        """Write `other` into this carry's tensors in place (a captured
+        iteration updates its static carry so)."""
+        for f in dataclasses.fields(self):
+            getattr(self, f.name).copy_(getattr(other, f.name))
+
+
+def prepare(z0: torch.Tensor, coeffs: torch.Tensor, p: MPCParams,
+            cfg: SolverConfig, u_init: Optional[torch.Tensor] = None,
+            omap=None, blobs=None, refs: Optional[torch.Tensor] = None,
+            _scan=None):
+    """The solve up to its loop (arguments as `solve`): the inputs batched
+    and on z0's device, the per-solve constants, the warm start clipped to
+    the bounds, its rollout and cost. Returns (Problem, State)."""
     if cfg.ddp != "auto" and bool(cfg.ddp) and cfg.horizon_parallel:
         # the associative-scan elements need SPD stage quadratics up
         # front, so the gated DDP contraction is sequential-path only
@@ -379,7 +426,7 @@ def solve(z0: torch.Tensor, coeffs: torch.Tensor, p: MPCParams,
     Bn = z0.shape[0]
     T = cfg.n_controls
     mdl = get_model(cfg.model)
-    dt = torch.as_tensor(p.dt, dtype=dtype, device=dev)
+    dt = const(p.dt, dtype, dev)
     blb, bub = mdl.control_bounds(p, dtype, dev)     # (2,) or (2, B)
     lb = (blb.T if blb.dim() == 2 else blb).expand(Bn, _M)
     ub = (bub.T if bub.dim() == 2 else bub).expand(Bn, _M)
@@ -397,7 +444,7 @@ def solve(z0: torch.Tensor, coeffs: torch.Tensor, p: MPCParams,
     cost = _traj_cost(ss[..., :dd.STATE_DIM], us, p1, omap, blobs, refs)
 
     def t_(x):
-        return torch.as_tensor(x, dtype=dtype, device=dev)
+        return const(x, dtype, dev)
 
     tol_grad = t_(cfg.tol_grad_for(dtype))
     # the relative cost tolerance can't be tighter than the dtype resolves
@@ -410,113 +457,167 @@ def solve(z0: torch.Tensor, coeffs: torch.Tensor, p: MPCParams,
         has_omaps=omap is not None)
     mu_factor = t_(cfg.mu_factor)
     alphas = t_(0.5) ** torch.arange(n_ls, dtype=dtype, device=dev)
-    gate_val = cfg.gate_for(blobs is not None, dtype,
-                            has_omaps=omap is not None)
+    # obstacle ensembles cap the auto gate at 0.75 and restore the blob
+    # Hessian's concave part (SolverConfig.gate_for)
+    gate = t_(cfg.gate_for(blobs is not None, dtype,
+                           has_omaps=omap is not None))
+    prob = Problem(
+        z0=z0, coeffs=coeffs, p=p, cfg=cfg, mdl=mdl, dt=dt, sign=sign,
+        lb=lb, ub=ub, omap=omap, blobs=blobs, refs=refs, use_ddp=use_ddp,
+        n_ls=n_ls, tol_grad=tol_grad, tol_cost=tol_cost, mu_min=mu_min,
+        mu_max=mu_max, inv_scl=inv_scl, cost_guard=cost_guard,
+        mu_factor=mu_factor, alphas=alphas, gate=gate,
+        rank=torch.arange(n_ls, device=dev), ar=torch.arange(Bn, device=dev),
+        single=single, scan=_scan)
+    st = State(
+        ss=ss, us=us, cost=cost, mu=mu_min.expand(Bn).clone(),
+        it=torch.zeros((Bn,), dtype=torch.int32, device=dev),
+        done=torch.zeros((Bn,), dtype=torch.bool, device=dev),
+        gnorm=torch.full((Bn,), float("inf"), dtype=dtype, device=dev),
+        n_small=torch.zeros((Bn,), dtype=torch.int32, device=dev),
+        conv=torch.zeros((Bn,), dtype=torch.bool, device=dev))
+    return prob, st
 
-    mu = mu_min.expand(Bn).clone()
-    it = torch.zeros((Bn,), dtype=torch.int32, device=dev)
-    done = torch.zeros((Bn,), dtype=torch.bool, device=dev)
-    gnorm = torch.full((Bn,), float("inf"), dtype=dtype, device=dev)
-    n_small = torch.zeros((Bn,), dtype=torch.int32, device=dev)
-    conv = torch.zeros((Bn,), dtype=torch.bool, device=dev)
-    ar = torch.arange(Bn, device=dev)
 
-    for _ in range(cfg.max_sqp_iters):
-        # the loop's condition per lane is it < max_iters and not done;
-        # every lane still running has run every iteration so far, so the
-        # cap is read on the host and "all done" once per iteration
-        host_reads += 1
-        if bool(done.all()):
-            break
-        run = ~done
-        A, Bm, l_s, l_u, l_ss, l_uu, l_us = _linearize_and_expand(
-            ss, us, coeffs, p, dt, sign, mdl, omap, blobs, refs)
-        V_s, V_ss = _terminal_expansion(
-            ss[:, -1], p, omap, blobs, None if refs is None else refs[:, -1])
-        if cfg.horizon_parallel:
-            # the scan elements need SPD stage quadratics up front; the
-            # gated DDP contraction is sequential-path only
-            ks, Ks, dV1, dV2, pg = backward_pass_parallel(
-                A, Bm, l_s, l_u, l_ss, l_uu, l_us, V_s, V_ss, us, lb, ub,
-                mu, inv_scale=inv_scl, scan=_scan)
-        elif use_ddp:
-            H = step_hessians(ss, us, coeffs, dt, sign, mdl, p)
-            # obstacle ensembles cap the auto gate at 0.75 and restore the
-            # blob Hessian's concave part (SolverConfig.gate_for)
-            g = (gnorm < t_(gate_val)).to(dtype)
-            if blobs is not None:
-                corr = blob_concave_bl(*_blob_lanes(blobs, 1), ss[:, :-1, 0],
-                                       ss[:, :-1, 1]) * g[:, None]
-                l_ss[..., 0, 0] -= corr
-                l_ss[..., 1, 1] -= corr
-                corrT = blob_concave_bl(*_blob_lanes(blobs), ss[:, -1, 0],
-                                        ss[:, -1, 1]) * g
-                V_ss[:, 0, 0] -= corrT
-                V_ss[:, 1, 1] -= corrT
-            ks, Ks, dV1, dV2, pg = backward_pass(
-                A, Bm, l_s, l_u, l_ss, l_uu, l_us, V_s, V_ss, us, lb, ub,
-                mu, H=H, ddp_gate_val=g, inv_scale=inv_scl)
-        else:
-            ks, Ks, dV1, dV2, pg = backward_pass(
-                A, Bm, l_s, l_u, l_ss, l_uu, l_us, V_s, V_ss, us, lb, ub,
-                mu, inv_scale=inv_scl)
-        # a tiny predicted decrease -(dV1 + dV2) marks a numerical optimum
-        pred_decrease = -(dV1 + dV2)
-        tiny_model = pred_decrease <= tol_cost * (cost_guard
-                                                  + torch.abs(cost))
+def iterate(prob: Problem, st: State) -> State:
+    """One SQP iteration on every lane; a lane that is done keeps its
+    state, as vmap's while_loop does. Reads nothing on the host."""
+    pr, cfg = prob, prob.cfg
+    p, mdl, omap, blobs, refs = pr.p, pr.mdl, pr.omap, pr.blobs, pr.refs
+    ss, us, cost, mu = st.ss, st.us, st.cost, st.mu
+    dtype = ss.dtype
+    run = ~st.done
+    A, Bm, l_s, l_u, l_ss, l_uu, l_us = _linearize_and_expand(
+        ss, us, pr.coeffs, p, pr.dt, pr.sign, mdl, omap, blobs, refs)
+    V_s, V_ss = _terminal_expansion(
+        ss[:, -1], p, omap, blobs, None if refs is None else refs[:, -1])
+    if cfg.horizon_parallel:
+        # the scan elements need SPD stage quadratics up front; the
+        # gated DDP contraction is sequential-path only
+        ks, Ks, dV1, dV2, pg = backward_pass_parallel(
+            A, Bm, l_s, l_u, l_ss, l_uu, l_us, V_s, V_ss, us, pr.lb, pr.ub,
+            mu, inv_scale=pr.inv_scl, scan=pr.scan)
+    elif pr.use_ddp:
+        H = step_hessians(ss, us, pr.coeffs, pr.dt, pr.sign, mdl, p)
+        g = (st.gnorm < pr.gate).to(dtype)
+        if blobs is not None:
+            corr = blob_concave_bl(*_blob_lanes(blobs, 1), ss[:, :-1, 0],
+                                   ss[:, :-1, 1]) * g[:, None]
+            l_ss[..., 0, 0] -= corr
+            l_ss[..., 1, 1] -= corr
+            corrT = blob_concave_bl(*_blob_lanes(blobs), ss[:, -1, 0],
+                                    ss[:, -1, 1]) * g
+            V_ss[:, 0, 0] -= corrT
+            V_ss[:, 1, 1] -= corrT
+        ks, Ks, dV1, dV2, pg = backward_pass(
+            A, Bm, l_s, l_u, l_ss, l_uu, l_us, V_s, V_ss, us, pr.lb, pr.ub,
+            mu, H=H, ddp_gate_val=g, inv_scale=pr.inv_scl)
+    else:
+        ks, Ks, dV1, dV2, pg = backward_pass(
+            A, Bm, l_s, l_u, l_ss, l_uu, l_us, V_s, V_ss, us, pr.lb, pr.ub,
+            mu, inv_scale=pr.inv_scl)
+    tol_cost, cost_guard = pr.tol_cost, pr.cost_guard
+    mu_min, mu_max, mu_factor = pr.mu_min, pr.mu_max, pr.mu_factor
+    # a tiny predicted decrease -(dV1 + dV2) marks a numerical optimum
+    pred_decrease = -(dV1 + dV2)
+    tiny_model = pred_decrease <= tol_cost * (cost_guard + torch.abs(cost))
 
-        # the parallel-in-alpha line search: the first (largest) alpha with
-        # a cost decrease wins
-        ss_all, us_all, costs_all = forward_pass_multi_alpha(
-            ss, us, ks, Ks, alphas, z0, coeffs, p, dt, lb, ub, sign, mdl,
-            omap, blobs, refs)
-        improved = costs_all < cost[:, None]
-        accepted = torch.any(improved, dim=1)
-        rank = torch.arange(n_ls, device=dev)
-        pick = torch.argmin(torch.where(improved, rank, n_ls + 1), dim=1)
-        ss_n = ss_all[ar, pick]
-        us_n = us_all[ar, pick]
-        cost_n = costs_all[ar, pick]
+    # the parallel-in-alpha line search: the first (largest) alpha with
+    # a cost decrease wins
+    ss_all, us_all, costs_all = forward_pass_multi_alpha(
+        ss, us, ks, Ks, pr.alphas, pr.z0, pr.coeffs, p, pr.dt, pr.lb, pr.ub,
+        pr.sign, mdl, omap, blobs, refs)
+    improved = costs_all < cost[:, None]
+    accepted = torch.any(improved, dim=1)
+    pick = torch.argmin(torch.where(improved, pr.rank, pr.n_ls + 1), dim=1)
+    ss_n = ss_all[pr.ar, pick]
+    us_n = us_all[pr.ar, pick]
+    cost_n = costs_all[pr.ar, pick]
 
-        ss2 = torch.where(accepted[:, None, None], ss_n, ss)
-        us2 = torch.where(accepted[:, None, None], us_n, us)
-        cost2 = torch.where(accepted, cost_n, cost)
-        mu2 = torch.where(accepted, torch.maximum(mu / mu_factor, mu_min),
-                          torch.minimum(mu * mu_factor, mu_max))
+    ss2 = torch.where(accepted[:, None, None], ss_n, ss)
+    us2 = torch.where(accepted[:, None, None], us_n, us)
+    cost2 = torch.where(accepted, cost_n, cost)
+    mu2 = torch.where(accepted, torch.maximum(mu / mu_factor, mu_min),
+                      torch.minimum(mu * mu_factor, mu_max))
 
-        # convergence is gradient-driven; the cost-based stop fires after
-        # two consecutive negligible decreases
-        small_step = accepted & (torch.abs(cost - cost2)
-                                 <= tol_cost * (cost_guard
-                                                + torch.abs(cost)))
-        n_small2 = torch.where(small_step, n_small + 1,
-                               torch.zeros_like(n_small))
-        # a tiny predicted decrease certifies an optimum only with the trust
-        # region open; under inflated mu it is a stall, and only if the
-        # step was also rejected
-        mu_open = mu <= mu_min * mu_factor
-        converged = (pg < tol_grad) | (n_small2 >= 2) | (tiny_model & mu_open)
-        stalled = ((~accepted & (mu2 >= mu_max))
-                   | (tiny_model & ~mu_open & ~accepted))
-        # lanes that are done keep their state, as vmap's while_loop does
-        ss = torch.where(run[:, None, None], ss2, ss)
-        us = torch.where(run[:, None, None], us2, us)
-        cost = torch.where(run, cost2, cost)
-        mu = torch.where(run, mu2, mu)
-        it = it + run.to(torch.int32)
-        gnorm = torch.where(run, pg, gnorm)
-        n_small = torch.where(run, n_small2, n_small)
-        conv = torch.where(run, converged, conv)
-        done = torch.where(run, converged | stalled, done)
+    # convergence is gradient-driven; the cost-based stop fires after
+    # two consecutive negligible decreases
+    small_step = accepted & (torch.abs(cost - cost2)
+                             <= tol_cost * (cost_guard + torch.abs(cost)))
+    n_small2 = torch.where(small_step, st.n_small + 1,
+                           torch.zeros_like(st.n_small))
+    # a tiny predicted decrease certifies an optimum only with the trust
+    # region open; under inflated mu it is a stall, and only if the
+    # step was also rejected
+    mu_open = mu <= mu_min * mu_factor
+    converged = (pg < pr.tol_grad) | (n_small2 >= 2) | (tiny_model & mu_open)
+    stalled = ((~accepted & (mu2 >= mu_max))
+               | (tiny_model & ~mu_open & ~accepted))
+    # lanes that are done keep their state, as vmap's while_loop does
+    return State(
+        ss=torch.where(run[:, None, None], ss2, ss),
+        us=torch.where(run[:, None, None], us2, us),
+        cost=torch.where(run, cost2, cost),
+        mu=torch.where(run, mu2, mu),
+        it=st.it + run.to(torch.int32),
+        gnorm=torch.where(run, pg, st.gnorm),
+        n_small=torch.where(run, n_small2, st.n_small),
+        conv=torch.where(run, converged, st.conv),
+        done=torch.where(run, converged | stalled, st.done))
 
-    res = SolveResult(us=us, zs=ss[..., :dd.STATE_DIM], cost=cost,
-                      converged=conv, n_iters=it, grad_norm=gnorm, reg=mu)
-    if single:
+
+def result(prob: Problem, st: State) -> SolveResult:
+    """The loop's carry as a SolveResult (unbatched for one scenario)."""
+    res = SolveResult(us=st.us, zs=st.ss[..., :dd.STATE_DIM], cost=st.cost,
+                      converged=st.conv, n_iters=st.it, grad_norm=st.gnorm,
+                      reg=st.mu)
+    if prob.single:
         res = SolveResult(**{f.name: getattr(res, f.name)[0]
                              for f in dataclasses.fields(res)})
     return res
 
 
-# the JAX package's jitted single-scenario entry point; the port runs eagerly,
-# so it is `solve` itself
-solve_jit = solve
+def solve(z0: torch.Tensor, coeffs: torch.Tensor, p: MPCParams,
+          cfg: SolverConfig, u_init: Optional[torch.Tensor] = None,
+          omap=None, blobs=None,
+          refs: Optional[torch.Tensor] = None, *,
+          _scan=None) -> SolveResult:
+    """Solve NMPC problems: z0 (B, 6), coeffs (B, P), or one problem, z0
+    (6,), coeffs (P,), whose result is then unbatched. The computation
+    runs on z0's device in z0's dtype.
+
+    `p`'s leaves are shared (floats or 0-d tensors) or per scenario ((B,)).
+    `u_init` (B, T, 2) warm-starts (clipped to the bounds); None is the
+    cold start, the plant rolled under zero controls. `blobs`
+    (`GaussianObstacles`, leaves (B, K)) adds Gaussian obstacles; `refs`
+    (B, N, 3) per-knot (ref_cte, ref_etheta, ref_vel) setpoint profiles;
+    `omap` (an `ObstacleMap`: one map for every lane, or one per lane
+    with leaves (B, ...)) a grid-costmap penalty. They compose. `_scan`
+    is internal: `parallel.sharded` passes the time-sharded reverse scan
+    of the horizon-parallel backward."""
+    global host_reads
+    prob, st = prepare(z0, coeffs, p, cfg, u_init, omap, blobs, refs, _scan)
+    for _ in range(cfg.max_sqp_iters):
+        # the loop's condition per lane is it < max_iters and not done;
+        # every lane still running has run every iteration so far, so the
+        # cap is read on the host and "all done" once per iteration
+        host_reads += 1
+        if bool(st.done.all()):
+            break
+        st = iterate(prob, st)
+    return result(prob, st)
+
+
+def solve_jit(z0: torch.Tensor, coeffs: torch.Tensor, p: MPCParams,
+              cfg: SolverConfig, u_init: Optional[torch.Tensor] = None,
+              omap=None, blobs=None,
+              refs: Optional[torch.Tensor] = None) -> SolveResult:
+    """The JAX package's jitted single-scenario entry point: `solve`
+    captured as CUDA graphs on the card, one capture per signature (the
+    config, which optional inputs are present, dtype, device and shapes),
+    as jit traces once per signature (`solver/graphed.py`); on the CPU the
+    same bodies run eagerly. The result equals `solve`'s bit for bit."""
+    from . import graphed
+
+    return graphed.solve_jit(z0, coeffs, p, cfg, u_init=u_init, omap=omap,
+                             blobs=blobs, refs=refs)

@@ -201,6 +201,87 @@ def step_poses(poses: np.ndarray, cmds: np.ndarray, dt: float,
     return np.stack([v, w], axis=1)
 
 
+def lockstep_cycles(controllers, cycles: int, plan=None, traj=None,
+                    events=None) -> list:
+    """Drive single-robot controllers through the same cycles: either
+    `MPCPlanner`s on `plan` (M, 3), or `TrajectoryTracker`s on the
+    `TimedTrajectory` `traj` (t_now = k dt). The first controller's
+    commands move a kinematic plant; every controller gets the same pose
+    and feedback each cycle. `events` maps a cycle index to a callable
+    applied to each controller before that cycle (a parameter reload, a
+    new costmap). Returns per controller a list of per-cycle records:
+    the command, the FSM state (planners), the solver's host reads
+    (`ilqr.host_reads`), and the solve's us, zs, cost and iterations
+    (None on a cycle without a solve)."""
+    from .sim import make_plant
+    from .solver import ilqr
+
+    first = controllers[0]
+    params = first.params if plan is not None else first._np_params
+    dt = float(np.max(np.asarray(params.to_numpy()["dt"])))
+    start = plan[0] if plan is not None else np.array(
+        [traj.xy[0, 0], traj.xy[0, 1], traj.yaw[0]])
+    plant = make_plant(first.solver_cfg.model, np.array(start, float), dt,
+                       params)
+    if plan is not None:
+        for c in controllers:
+            c.set_plan(plan, plant.pose)
+    else:
+        for c in controllers:
+            c.set_trajectory(traj)
+    out = [[] for _ in controllers]
+    for k in range(cycles):
+        for c in controllers:
+            if events and k in events:
+                events[k](c)
+        cmd0 = None
+        for c, rec in zip(controllers, out):
+            reads = ilqr.host_reads
+            if plan is not None:
+                _, cmd, info = c.compute_velocity_commands(
+                    plant.pose.copy(), plant.feedback_vel)
+                solve = None if info.tracking is None else \
+                    info.tracking.solve
+                state = info.state.value
+            else:
+                cmd, dbg = c.compute(k * dt, plant.pose.copy(),
+                                     plant.feedback_vel[0])
+                solve, state = dbg.solve, None
+            rec.append(dict(
+                cmd=np.asarray(cmd, float), state=state,
+                reads=ilqr.host_reads - reads,
+                solve=None if solve is None else dict(
+                    us=np.asarray(solve.us), zs=np.asarray(solve.zs),
+                    cost=float(solve.cost), iters=int(solve.n_iters))))
+            cmd0 = cmd if cmd0 is None else cmd0
+        plant.step(*cmd0)
+    return out
+
+
+def records_equal(a: list, b: list) -> dict:
+    """Bit-for-bit agreement of two `lockstep_cycles` records (their host
+    reads equal too): the cycles compared, the first cycle that differs
+    (None) and the largest difference of commands and controls."""
+    first, dmax = None, 0.0
+    for k, (ra, rb) in enumerate(zip(a, b)):
+        same = (np.array_equal(ra["cmd"], rb["cmd"])
+                and ra["state"] == rb["state"] and ra["reads"] == rb["reads"]
+                and (ra["solve"] is None) == (rb["solve"] is None))
+        d = float(np.max(np.abs(ra["cmd"] - rb["cmd"])))
+        if same and ra["solve"] is not None:
+            sa, sb = ra["solve"], rb["solve"]
+            same = (np.array_equal(sa["us"], sb["us"])
+                    and np.array_equal(sa["zs"], sb["zs"])
+                    and sa["cost"] == sb["cost"]
+                    and sa["iters"] == sb["iters"])
+            d = max(d, float(np.max(np.abs(sa["us"] - sb["us"]))))
+        dmax = max(dmax, d)
+        if not same and first is None:
+            first = k
+    return dict(cycles=min(len(a), len(b)), first_diff=first,
+                max_abs_diff=dmax, equal=first is None and len(a) == len(b))
+
+
 def multihost_sweep_worker(rank: int, port: int, out_dir: str) -> None:
     """One rank of the two-process gloo sweep (run by
     `torch.multiprocessing.spawn`): `init_multihost` on the CPU, this

@@ -7,7 +7,8 @@ loop (the planner and the trajectory tracker on the three courses) and
 fleet serving (the host and device pipelines and the fleet trajectory
 tracker, with K1 launched once per cycle), grid costmaps on the XLA lane
 path against the CPU, the fleet's costmap route (one K1 launch per
-cycle), the device blob fit and the supervisors. Run on
+cycle), the device blob fit and the supervisors, and the single-robot
+cycles as captured CUDA graphs against the eager cycles. Run on
 the card with
 `python -m pytest --noconftest tests/test_torch_cuda.py` (tests/conftest.py
 configures JAX, which the card's machine need not have).
@@ -994,3 +995,75 @@ def test_supervisors_recover_on_the_card(dev):
     assert ok and sup.state is RecoveryState.NORMAL
     assert sup.stats.replans == 1 and np.isfinite(cmd).all()
     assert planner.tracker._warm_dev.is_cuda
+
+
+# The single-robot cycles as captured CUDA graphs (solver/graphed.py)
+# against the eager cycles on the card: phase 24's planner and the
+# trajectory tracker in lockstep, bit for bit.
+def _loop_planner(dev, graphed_cycle):
+    from mpc_ros_tpu_torch.config import PlannerConfig
+    from mpc_ros_tpu_torch.planner import MPCPlanner
+
+    pl = MPCPlanner(MPCParams(**LOOP), SolverConfig(n_steps=20),
+                    PlannerConfig(local_plan_length=2.5), device=dev)
+    pl.initialize()
+    pl.tracker._graphed = graphed_cycle
+    return pl
+
+
+def test_captured_planner_cycle_equals_eager_on_the_card(dev):
+    """20 cycles of phase 24's course, a parameter reload at cycle 8, a
+    costmap at 12 and one of the same shape at 16: the captured cycle
+    equals the eager one bit for bit; the reload and the second costmap
+    capture nothing; replays make no synchronizing call
+    (`set_sync_debug_mode("error")` raises on one)."""
+    from mpc_ros_tpu_torch.models.obstacles import gaussian_blob_map
+    from mpc_ros_tpu_torch.sim import get_shape
+    from mpc_ros_tpu_torch.solver import graphed
+    from mpc_ros_tpu_torch.testing import lockstep_cycles, records_equal
+
+    plan = get_shape("infinity")
+    c = plan[25, :2]
+    maps = [gaussian_blob_map((float(c[0]), float(c[1]) + d), sigma=0.3,
+                              extent=8.0, weight=50.0) for d in (0.6, 0.5)]
+    ours, eager = _loop_planner(dev, True), _loop_planner(dev, False)
+    counts = {}
+
+    def note(k):
+        def f(pl):
+            if pl is ours:
+                counts[k] = graphed.captures
+        return f
+
+    events = {7: note(7), 8: lambda pl: pl.reconfigure(
+        MPCParams(**dict(LOOP, w_cte=250.0, ref_vel=0.45))), 11: note(11),
+        12: lambda pl: pl.set_costmap(maps[0]), 15: note(15),
+        16: lambda pl: pl.set_costmap(maps[1])}
+    a, b = lockstep_cycles([ours, eager], 20, plan=plan, events=events)
+    rec = records_equal(a, b)
+    assert rec["equal"], rec
+    assert counts[11] == counts[7] and counts[15] == counts[11] + 1
+    assert graphed.captures == counts[15]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            ours.compute_velocity_commands(np.array(plan[3]), (0.3, 0.0))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_captured_tracker_cycle_equals_eager_on_the_card(dev):
+    from mpc_ros_tpu_torch.config import PlannerConfig
+    from mpc_ros_tpu_torch.planner import TimedTrajectory, TrajectoryTracker
+    from mpc_ros_tpu_torch.sim import get_shape
+    from mpc_ros_tpu_torch.testing import lockstep_cycles, records_equal
+
+    trs = [TrajectoryTracker(
+        MPCParams(**{k: v for k, v in LOOP.items() if k != "ref_vel"}),
+        SolverConfig(n_steps=20), PlannerConfig(local_plan_length=2.5),
+        device=dev) for _ in range(2)]
+    trs[1]._graphed = False
+    traj = TimedTrajectory.from_path(get_shape("infinity"), 0.4)
+    a, b = lockstep_cycles(trs, 20, traj=traj)
+    rec = records_equal(a, b)
+    assert rec["equal"], rec

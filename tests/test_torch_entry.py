@@ -92,9 +92,10 @@ def test_exports_match_the_jax_package():
         assert getattr(mpc_ros_tpu_torch, name) is not None, name
     from mpc_ros_tpu_torch.engine import Scenario
     from mpc_ros_tpu_torch.solver import SolveResult, solve, solve_jit
-    from mpc_ros_tpu_torch.solver.ilqr import solve as ilqr_solve
+    from mpc_ros_tpu_torch.solver import ilqr
 
-    assert solve is ilqr_solve and solve_jit is ilqr_solve
+    # solve_jit is the captured solve (solver/graphed.py), no alias
+    assert solve is ilqr.solve and solve_jit is ilqr.solve_jit
     assert SolveResult is not None
     sc = Scenario(z0=torch.zeros(6), coeffs=torch.zeros(4))
     assert sc.z0.shape == (6,) and sc.coeffs.shape == (4,)

@@ -134,10 +134,13 @@ def test_compute_equals_jax_over_cycles(case):
     ours, ref = _pair(BIKE if model == "bicycle" else LEAVES, model,
                       **plan_kw)
     _check(_run(ours, ref, blobs=blobs, model=model))
-    # the device carry is the last optimum; reset clears it
-    assert ours._warm_dev is not None
+    # the device carry is the last optimum; reset zeroes it in place (a
+    # zero carry is the cold start)
+    carry = ours._warm_dev
+    assert bool(carry.any())
     ours.reset()
-    assert ours._warm_dev is None and ours.w == 0.0
+    assert ours._warm_dev is carry and not bool(carry.any())
+    assert ours.w == 0.0
 
 
 def test_update_params_hot_reloads_like_jax():

@@ -2,6 +2,7 @@
 """Where a single-robot closed-loop cycle spends its time on the card.
 
     python3 tools/closed_loop_profile.py [--warm 30] [--cycles 20]
+                                         [--eager] [--sync-debug]
 
 Builds the planner of `chip_smoke.py`'s phase 24 (float32, N=20, the
 planner configuration of tests/test_closed_loop.py) on the card, runs the
@@ -9,11 +10,20 @@ infinity course for `--warm` cycles, then traces `--cycles` more with
 `torch.profiler` (CPU and CUDA activities) and prints one JSON line: the
 card's name and power limit, the wall time per cycle, the device time per
 cycle (the sum of the CUDA kernels' and copies' own time), the device's
-busy share of the wall time, kernel launches, host-to-device and
-device-to-host copies and synchronizations per cycle, SQP iterations per
-cycle, and the ten operators that take the most host time. A trace with no
-device time prints `"device_ms_per_cycle": null` (not measured). Needs a
-CUDA device; exits non-zero without one.
+busy share of the wall time, kernel launches, graph launches,
+host-to-device and device-to-host copies and synchronizations (stream,
+device and event) per cycle, SQP iterations and host reads per cycle, the
+graph captures made, and the ten operators that take the most host time.
+A trace with no device time prints `"device_ms_per_cycle": null` (not
+measured).
+
+The cycle runs through the captured solve (`solver/graphed.py`) unless
+`--eager` is given, which sets the tracker's private `_graphed` False (the
+eager `tracking._cycle`). `--sync-debug` runs `--cycles` further cycles
+under `torch.cuda.set_sync_debug_mode("warn")` and counts the warnings
+per cycle (each a synchronizing call: a pageable copy, a `.item()`, a
+`bool()` of a device tensor). Needs a CUDA device; exits non-zero without
+one.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -30,11 +41,18 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+               "cuLaunchKernelEx")
+SYNC_KEYS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+             "cudaEventSynchronize")
+
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--warm", type=int, default=30)
     ap.add_argument("--cycles", type=int, default=20)
+    ap.add_argument("--eager", action="store_true")
+    ap.add_argument("--sync-debug", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("closed_loop_profile.py needs a CUDA device")
@@ -45,6 +63,10 @@ def main() -> None:
     from mpc_ros_tpu_torch.sim import get_shape, make_plant
     from mpc_ros_tpu_torch.solver import ilqr
 
+    try:
+        from mpc_ros_tpu_torch.solver import graphed
+    except ImportError:     # a tree without the captured solve
+        graphed = None
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -58,6 +80,7 @@ def main() -> None:
     plan = get_shape("infinity")
     plant = make_plant("diff_drive", plan[0].copy(), 0.1, planner.params)
     planner.initialize()
+    planner.tracker._graphed = not args.eager
     planner.set_plan(plan, plant.pose)
     iters = []
 
@@ -81,32 +104,56 @@ def main() -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     n = args.cycles
+    reads = ilqr.host_reads - reads
     events = prof.key_averages()
     device_us = sum(e.self_device_time_total for e in events
                     if e.device_type == torch.autograd.DeviceType.CUDA)
-    launches = sum(e.count for e in events if e.key in (
-        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
-    h2d = sum(e.count for e in events if "HtoD" in e.key)
-    d2h = sum(e.count for e in events if "DtoH" in e.key)
-    syncs = sum(e.count for e in events if e.key in (
-        "cudaStreamSynchronize", "cudaDeviceSynchronize"))
+
+    def count(pred):
+        return sum(e.count for e in events if pred(e.key)) / n
+
     top = sorted((e for e in events
                   if e.device_type == torch.autograd.DeviceType.CPU
                   and e.key.startswith("aten::")),
                  key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
-    print(json.dumps({
-        "card": card, "cycles": n, "warm_cycles": args.warm,
+    out = {
+        "card": card, "path": "eager" if args.eager else "graphed",
+        "cycles": n, "warm_cycles": args.warm,
         "wall_ms_per_cycle": wall / n * 1e3,
         "device_ms_per_cycle": device_us / n / 1e3 if device_us else None,
         "device_busy_share": (device_us / 1e6 / wall) if device_us else None,
-        "kernel_launches_per_cycle": launches / n,
-        "h2d_copies_per_cycle": h2d / n, "d2h_copies_per_cycle": d2h / n,
-        "syncs_per_cycle": syncs / n,
+        "kernel_launches_per_cycle": count(lambda k: k in LAUNCH_KEYS),
+        "graph_launches_per_cycle": count(lambda k: k == "cudaGraphLaunch"),
+        # the copies as the device ran them (a copy inside a graph is no
+        # API call of its own)
+        "h2d_copies_per_cycle": count(lambda k: "HtoD" in k),
+        "d2h_copies_per_cycle": count(lambda k: "DtoH" in k),
+        "syncs_per_cycle": count(lambda k: k in SYNC_KEYS),
+        "syncs_by_kind_per_cycle": {k: count(lambda x, k=k: x == k)
+                                    for k in SYNC_KEYS},
         "sqp_iters_per_cycle": float(np.mean(iters)),
-        "host_reads_per_cycle": (ilqr.host_reads - reads) / n,
+        "host_reads_per_cycle": reads / n,
+        "captures": None if graphed is None else graphed.captures,
         "top_host_ops_ms_per_cycle": {
             e.key: e.self_cpu_time_total / n / 1e3 for e in top},
-    }), flush=True)
+    }
+    if args.sync_debug:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for _ in range(n):
+                    cycle()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        # by the Python line that made the synchronizing call
+        kinds: dict = {}
+        for w in caught:
+            where = f"{Path(w.filename).name}:{w.lineno}"
+            kinds[where] = kinds.get(where, 0) + 1
+        out["sync_debug_warnings_per_cycle"] = len(caught) / n
+        out["sync_debug_kinds"] = kinds
+    print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":
