@@ -10,6 +10,10 @@ launch of the whole-solve kernel under "auto"). Per-robot Gaussian
 obstacles (`blobs`) join every cycle's solve; the plant steps with the
 configured family's kinematics (`get_model(cfg.model).step`), so bicycle
 fleets serve as diff-drive ones do.
+
+Each cycle is the span `serve.cycle` (`obs.span`), holding `serve.solve`,
+`serve.plant_step` and `serve.warm_shift`; the stacking of the record
+after the loop is `serve.stack`.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 
 from ..config import SolverConfig
 from ..models.base import get_model
+from ..obs.timers import span
 from ..solver.batch_lane import batch_solve_lane
 
 
@@ -49,14 +54,20 @@ def receding_horizon_rollout(z0s: torch.Tensor, coeffs: torch.Tensor, p,
     warm = torch.zeros((B, T, 2), dtype=dtype, device=z0s.device)
     rec = []
     for _ in range(n_cycles):
-        res = batch_solve_lane(zs, coeffs, p, cfg, u_init=warm, blobs=blobs)
-        u0 = res.us[:, 0, :]                        # (B, 2)
-        zs_next = mdl.step(zs, u0, coeffs, dt, sign, p)
-        # shift warm start
-        warm = torch.cat([res.us[:, 1:], res.us[:, -1:]], dim=1)
-        rec.append((zs, u0, res.cost, res.n_iters, res.converged))
-        zs = zs_next
-    zs_t, us_t, costs_t, iters_t, conv_t = (torch.stack(r)
-                                            for r in zip(*rec))
-    return RecedingTrace(zs=zs_t, us=us_t, costs=costs_t,
-                         iters=iters_t.to(torch.int32), converged=conv_t)
+        with span("serve.cycle"):
+            with span("serve.solve"):
+                res = batch_solve_lane(zs, coeffs, p, cfg, u_init=warm,
+                                       blobs=blobs)
+            u0 = res.us[:, 0, :]                        # (B, 2)
+            with span("serve.plant_step"):
+                zs_next = mdl.step(zs, u0, coeffs, dt, sign, p)
+            with span("serve.warm_shift"):
+                warm = torch.cat([res.us[:, 1:], res.us[:, -1:]], dim=1)
+                rec.append((zs, u0, res.cost, res.n_iters, res.converged))
+            zs = zs_next
+    with span("serve.stack"):
+        zs_t, us_t, costs_t, iters_t, conv_t = (torch.stack(r)
+                                                for r in zip(*rec))
+        return RecedingTrace(zs=zs_t, us=us_t, costs=costs_t,
+                             iters=iters_t.to(torch.int32),
+                             converged=conv_t)

@@ -11,7 +11,8 @@ the variant tuple into `-D` macros), and `build_many` compiles several
 together.
 
 Nothing is compiled at import time: the first `load` of a variant builds
-it.
+it. A `load` that compiles or opens a library is the span `kernels.build`
+(`obs.span`); a lookup of one already loaded opens none.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Callable
+
+from ..obs.timers import span
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 COMMON = ("tiles.cuh", "async_copy.cuh")
@@ -167,10 +170,11 @@ def load(kernel: str, variant=()):
     fn = _LIBS.get(key)
     if fn is not None:
         return fn
-    out, job = _start(*key)
-    if job is not None:
-        _finish(out, job)
-    lib = ctypes.CDLL(str(out))
+    with span("kernels.build"):
+        out, job = _start(*key)
+        if job is not None:
+            _finish(out, job)
+        lib = ctypes.CDLL(str(out))
     spec = KERNELS[kernel]
     fn = getattr(lib, spec.entry)
     fn.argtypes = list(spec.argtypes)

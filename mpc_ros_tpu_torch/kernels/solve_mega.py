@@ -34,6 +34,12 @@ single, sorted and compact schedules.
 
 `solve_mega` sends CPU tensors to `solve_mega_plain` and CUDA tensors to
 `solve_mega_cuda`, which launches the kernel or raises.
+
+Spans (`obs.span`): `solve_mega_cuda` is `k1.dispatch`, holding
+`k1.prepare` (the checks, the knobs, the contiguous inputs, the build's
+lookup) and `k1.launch` (the outputs' and scratch's allocation and the
+launcher's call); a schedule's host work between and after its passes
+(sorts, gathers, scatters) is `k1.schedule`.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import math
 
 import torch
 
+from ..obs.timers import span
 from . import tiles
 from .pack import (N_PAR, P_DT, P_LF, P_RCTE, P_RETH, P_RVEL, P_WACC,
                    P_WANG, P_WCTE, P_WDACC, P_WDANG, P_WETH, P_WVEL)
@@ -953,6 +960,22 @@ def solve_mega_cuda(zT, cT, pp, lb, ub, u0, cfg, resume=None,
     family its BICYCLE variant. `diag`: the line-search diagnostic
     (`check_diag`), off the main path."""
     global launches
+    with span("k1.dispatch"):
+        with span("k1.prepare"):
+            launch, kn, ins, opt = _cuda_inputs(
+                zT, cT, pp, lb, ub, u0, cfg, resume, lockstep, blobs, refs,
+                diag)
+        with span("k1.launch"):
+            out = _cuda_launch(launch, kn, ins, opt, diag)
+    launches += 1
+    return out
+
+
+def _cuda_inputs(zT, cT, pp, lb, ub, u0, cfg, resume, lockstep, blobs, refs,
+                 diag):
+    """`solve_mega_cuda`'s checks: the launcher of the variant, its knobs,
+    the six inputs contiguous and the optional ones (resume, refs,
+    blobs)."""
     args = ((zT, cT, pp, lb, ub, u0) + tuple(resume or ())
             + tuple(blobs or ()) + (() if refs is None else (refs,)))
     for a in args:
@@ -986,8 +1009,16 @@ def solve_mega_cuda(zT, cT, pp, lb, ub, u0, cfg, resume=None,
         [None] * 4 if blobs is None else [b.contiguous() for b in blobs])
     from . import _build
 
-    launch = _build.load("solve_mega", kn.variant)
-    dev = zT.device
+    return _build.load("solve_mega", kn.variant), kn, ins, opt
+
+
+def _cuda_launch(launch, kn, ins, opt, diag):
+    """`solve_mega_cuda`'s outputs and scratch, allocated, and the
+    launcher's call on the current stream."""
+    from . import _build
+
+    T, B, P = kn.T, ins[0].shape[-1], ins[1].shape[0]
+    dev = ins[0].device
     f32 = torch.float32
 
     def empty(*shape):
@@ -1014,7 +1045,6 @@ def solve_mega_cuda(zT, cT, pp, lb, ub, u0, cfg, resume=None,
             *(ctypes.c_int(int(v)) for v in kn.variant),
             ctypes.c_void_p(stream))
     _build.check(launch, err, "solve_mega")
-    launches += 1
     return (ss, us, *outs)
 
 
@@ -1080,22 +1110,25 @@ def _solve_sorted(zT, cT, pp, lb, ub, u0, cfg, plain, blobs=None,
     cfg2 = dataclasses.replace(cfg, max_sqp_iters=cfg.max_sqp_iters - k1)
     ss1, us1, cost1, conv1, it1, gn1, mu1, done1 = _pass(
         zT, cT, pp, lb, ub, u0, cfg1, plain, blobs=blobs, refs=refs)
-    key = torch.where(done1 > 0.5, torch.full_like(gn1, -1.0), gn1)
-    # stable, as jnp.argsort: equal keys keep their order, so lanes land
-    # in the same tiles as in the JAX package
-    perm = torch.argsort(key, stable=True)
-    inv_perm = torch.argsort(perm, stable=True)
+    with span("k1.schedule"):
+        key = torch.where(done1 > 0.5, torch.full_like(gn1, -1.0), gn1)
+        # stable, as jnp.argsort: equal keys keep their order, so lanes
+        # land in the same tiles as in the JAX package
+        perm = torch.argsort(key, stable=True)
+        inv_perm = torch.argsort(perm, stable=True)
 
-    def tk(a):
-        return a.index_select(-1, perm)
+        def tk(a):
+            return a.index_select(-1, perm)
 
-    blobs2, refs2 = _take(perm, blobs, refs)
-    outs = _pass(tk(zT), tk(cT), tk(pp), tk(lb), tk(ub), tk(us1), cfg2,
-                 plain, resume=(tk(done1), tk(conv1), tk(mu1), tk(gn1)),
-                 blobs=blobs2, refs=refs2)
-    ss, us, cost, conv, it2, gnorm, mu, done = (
-        a.index_select(-1, inv_perm) for a in outs)
-    return ss, us, cost, conv, it1 + it2, gnorm, mu, done
+        blobs2, refs2 = _take(perm, blobs, refs)
+        ins2 = (tk(zT), tk(cT), tk(pp), tk(lb), tk(ub), tk(us1))
+        resume2 = (tk(done1), tk(conv1), tk(mu1), tk(gn1))
+    outs = _pass(*ins2, cfg2, plain, resume=resume2, blobs=blobs2,
+                 refs=refs2)
+    with span("k1.schedule"):
+        ss, us, cost, conv, it2, gnorm, mu, done = (
+            a.index_select(-1, inv_perm) for a in outs)
+        return ss, us, cost, conv, it1 + it2, gnorm, mu, done
 
 
 def compact_n_tail(B: int, cfg) -> int:
@@ -1191,7 +1224,8 @@ def _solve_compact(zT, cT, pp, lb, ub, u0, cfg, plain, blobs=None,
         # batch too small for a compaction win — single pass
         return _pass(*ins, cfg, plain, blobs=blobs, refs=refs)
     out1 = _pass(*ins, compact_pass1_cfg(cfg), plain, blobs=blobs, refs=refs)
-    tail = compact_tail(ins, out1, cfg, blobs, refs)
+    with span("k1.schedule"):
+        tail = compact_tail(ins, out1, cfg, blobs, refs)
     last_need = tail.need
     tail_lanes += n_tail
     out2 = _pass(*tail.ins, tail.cfg, plain, resume=tail.resume,
@@ -1203,6 +1237,7 @@ def _solve_compact(zT, cT, pp, lb, ub, u0, cfg, plain, blobs=None,
     def scat(full, part):
         return full.index_copy(full.dim() - 1, sel, part)
 
-    return (scat(ss1, ss2), scat(us1, us2), scat(cost1, cost2),
-            scat(conv1, conv2), it1.index_add(0, sel, it2), scat(gn1, gn2),
-            scat(mu1, mu2), scat(done1, done2))
+    with span("k1.schedule"):
+        return (scat(ss1, ss2), scat(us1, us2), scat(cost1, cost2),
+                scat(conv1, conv2), it1.index_add(0, sel, it2),
+                scat(gn1, gn2), scat(mu1, mu2), scat(done1, done2))

@@ -24,6 +24,7 @@ import torch
 from ..config import MPCParams, PlannerConfig, SolverConfig
 from ..models.base import get_model
 from ..models.obstacles import GaussianObstacles, fit_gaussians_to_map
+from ..obs.timers import span
 from . import plan_utils
 from .fsm import (DrivingState, check_transition, normalize_angle,
                   rotate_command, seed_state)
@@ -230,31 +231,40 @@ class MPCPlanner:
                                   feedback_vel: tuple[float, float]
                                   ) -> tuple[bool, tuple[float, float],
                                              CycleInfo]:
-        """One control cycle. Returns (ok, (v, w), info)."""
+        """One control cycle, the span `planner.cycle` (`obs.span`): the
+        plan's cutoff, truncation and the state machine (`planner.plan`),
+        then the state's command (the Tracking state's: `planner.track`).
+        Returns (ok, (v, w), info)."""
+        with span("planner.cycle"):
+            return self._cycle(pose, feedback_vel)
+
+    def _cycle(self, pose, feedback_vel):
         t0 = time.perf_counter()
-        pose = np.asarray(pose, float)
-        if not self._initialized or self.global_plan is None:
-            return False, (0.0, 0.0), None
+        with span("planner.plan"):
+            pose = np.asarray(pose, float)
+            if not self._initialized or self.global_plan is None:
+                return False, (0.0, 0.0), None
 
-        cut = plan_utils.cutoff_plan(self.global_plan, pose[:2])
-        if len(cut) == 0:
-            return False, (0.0, 0.0), None
-        # the pruned plan stays the live global plan
-        self.global_plan = cut
-        cut = plan_utils.truncate_by_length(
-            cut, self.planner_cfg.local_plan_length)
+            cut = plan_utils.cutoff_plan(self.global_plan, pose[:2])
+            if len(cut) == 0:
+                return False, (0.0, 0.0), None
+            # the pruned plan stays the live global plan
+            self.global_plan = cut
+            cut = plan_utils.truncate_by_length(
+                cut, self.planner_cfg.local_plan_length)
 
-        position_reached = self._is_position_reached(pose)
-        goal_reached = False
-        below = False
-        if position_reached:
-            goal_reached = self._is_orientation_reached(pose, feedback_vel)
-        else:
-            below = ((not self._can_rotate)
-                     or self._below_heading_error(pose, cut))
-        self.state = check_transition(
-            self.state, position_reached=position_reached,
-            goal_reached=goal_reached, below_heading_error=below)
+            position_reached = self._is_position_reached(pose)
+            goal_reached = False
+            below = False
+            if position_reached:
+                goal_reached = self._is_orientation_reached(pose,
+                                                            feedback_vel)
+            else:
+                below = ((not self._can_rotate)
+                         or self._below_heading_error(pose, cut))
+            self.state = check_transition(
+                self.state, position_reached=position_reached,
+                goal_reached=goal_reached, below_heading_error=below)
 
         mpc_traj = None
         tracking_dbg = None
@@ -272,8 +282,9 @@ class MPCPlanner:
             cmd = rotate_command(pose[2], plan_utils.path_heading(cut),
                                  self.planner_cfg.rotate_p_gain)
         else:  # TRACKING
-            cmd, ref_plan, mpc_traj, tracking_dbg = self._tracking_command(
-                pose, feedback_vel, cut)
+            with span("planner.track"):
+                cmd, ref_plan, mpc_traj, tracking_dbg = (
+                    self._tracking_command(pose, feedback_vel, cut))
 
         info = CycleInfo(
             state=self.state, cmd=tuple(cmd), local_plan=cut,

@@ -30,6 +30,10 @@ kernel. Per-knot setpoints (`refs`) off the kernel route run on the
 registry-generic engine (`engine.batch_solve`, the single-scenario
 solver batched), as the JAX package does; with grid maps they raise its
 ValueError.
+
+Spans (`obs.span`): on the kernel route the lane packing is
+`dispatch.lane_inputs` and the batch-major result `dispatch.result`; the
+XLA lane path's loop condition, read on the host, is `sync.batch_lane`.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from ..models.base import get_model
 from ..models.costs import scaled_solver_knobs
 from ..models.obstacles import (blob_concave_bl, blob_terms_bl,
                                 obstacle_cost_grad_bl, obstacle_curv_bl)
+from ..obs.timers import span
 from .types import SolveResult
 
 # active-set enumeration order of the XLA box QP
@@ -592,9 +597,10 @@ class LaneSQP:
         done_frac)."""
         if self.it >= self.cfg.max_sqp_iters:
             return False
-        if self.cfg.done_frac >= 1.0:
-            return not bool(self.done.all())
-        return bool(self.done.to(self.dtype).mean() < self.done_frac)
+        with span("sync.batch_lane"):
+            if self.cfg.done_frac >= 1.0:
+                return not bool(self.done.all())
+            return bool(self.done.to(self.dtype).mean() < self.done_frac)
 
     def backward_inputs(self):
         """The backward stage's inputs of the next iteration: ss, us, cT,
@@ -796,25 +802,28 @@ def batch_solve_lane(z0s: torch.Tensor, coeffs: torch.Tensor, p,
                                                 device=z0s.device),
                            blobs=blobs)
     if use_mega:
-        zT, cT, pp, lb, ub, us0 = lane_inputs(z0s, coeffs, p, cfg, u_init)
         dtype, dev = z0s.dtype, z0s.device
-        bl = (None if blobs is None else
-              tuple(a.to(dtype=dtype, device=dev) for a in blobs.lane()))
-        refsT = (None if refs is None else torch.as_tensor(
-            refs, dtype=dtype, device=dev).permute(1, 2, 0).contiguous())
+        with span("dispatch.lane_inputs"):
+            zT, cT, pp, lb, ub, us0 = lane_inputs(z0s, coeffs, p, cfg,
+                                                  u_init)
+            bl = (None if blobs is None else
+                  tuple(a.to(dtype=dtype, device=dev) for a in blobs.lane()))
+            refsT = (None if refs is None else torch.as_tensor(
+                refs, dtype=dtype, device=dev).permute(1, 2, 0).contiguous())
         # CUDA tensors launch the kernel, CPU tensors run its plain version
         (ss_f, us_f, cost_f, conv_f, iters_f, gnorm_f, mu_f,
          _done) = solve_mega_scheduled(zT, cT, pp, lb, ub, us0, cfg,
                                        blobs=bl, refs=refsT)
-        return SolveResult(
-            us=us_f.permute(2, 0, 1),               # (B, T, 2)
-            zs=ss_f[:, :6, :].permute(2, 0, 1),     # (B, N, 6)
-            cost=cost_f,
-            converged=conv_f > 0.5,
-            n_iters=iters_f.to(torch.int32),
-            grad_norm=gnorm_f,
-            reg=mu_f,
-        )
+        with span("dispatch.result"):
+            return SolveResult(
+                us=us_f.permute(2, 0, 1),               # (B, T, 2)
+                zs=ss_f[:, :6, :].permute(2, 0, 1),     # (B, N, 6)
+                cost=cost_f,
+                converged=conv_f > 0.5,
+                n_iters=iters_f.to(torch.int32),
+                grad_norm=gnorm_f,
+                reg=mu_f,
+            )
     if use_pallas:
         return solve_two_kernel(z0s, coeffs, p, cfg, u_init)
     return LaneSQP(z0s, coeffs, p, cfg, u_init, blobs=blobs,

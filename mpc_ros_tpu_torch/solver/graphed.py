@@ -38,6 +38,14 @@ which is how the CPU tests check the buffer protocol.
 The horizon-parallel backward (`SolverConfig.horizon_parallel`) reads the
 host once per active-set sweep inside an iteration, so a solve with it is
 not one graph: `capturable` says so, and its callers run it eagerly.
+
+Spans (`obs.span`): a capture is `graphed.capture`; each run's phases are
+`graphed.prologue`, `graphed.body` (once per iteration) and
+`graphed.epilogue`, the flag's read `sync.graphed_flag` and an output's
+fetch `sync.graphed_fetch`, on the card's replays and the CPU's direct
+calls alike. They cost nothing unless a profiler runs or a collector is
+installed, and a collector times them without the profiler, which would
+record each of an iteration's graph nodes.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ import numpy as np
 import torch
 
 from ..config import MPCParams, SolverConfig
+from ..obs.timers import span
 from . import ilqr
 from .types import SolveResult
 
@@ -142,14 +151,20 @@ class CapturedSolve:
         """The three bodies called directly, the loop reading the flag
         after each iteration (the first read is known: no lane starts
         done)."""
-        prob, st = self._prologue(self.inputs)
+        with span("graphed.prologue"):
+            prob, st = self._prologue(self.inputs)
         flag = None
         for i in range(self.cfg.max_sqp_iters):
             ilqr.host_reads += 1
-            if i and bool(flag):
-                break
-            flag = self._body(prob, st)
-        return self._epilogue(self.inputs, prob, st)
+            if i:
+                with span("sync.graphed_flag"):
+                    done = bool(flag)
+                if done:
+                    break
+            with span("graphed.body"):
+                flag = self._body(prob, st)
+        with span("graphed.epilogue"):
+            return self._epilogue(self.inputs, prob, st)
 
     def run(self) -> dict:
         """One solve on the current inputs: the outputs' dict (on the card
@@ -157,22 +172,27 @@ class CapturedSolve:
         if self.device.type != "cuda":
             return self._eager()
         if self._graphs is None:
-            return self._capture()
+            with span("graphed.capture"):
+                return self._capture()
         pro, body, epi = self._graphs
-        pro.replay()
+        with span("graphed.prologue"):
+            pro.replay()
         for i in range(self.cfg.max_sqp_iters):
             ilqr.host_reads += 1
             if i and self._read_flag():
                 break
-            body.replay()
-        epi.replay()
+            with span("graphed.body"):
+                body.replay()
+        with span("graphed.epilogue"):
+            epi.replay()
         return self.outputs
 
     def _read_flag(self) -> bool:
-        self._flag_host.copy_(self._flag, non_blocking=True)
-        self._event.record()
-        self._event.synchronize()
-        return bool(self._flag_host)
+        with span("sync.graphed_flag"):
+            self._flag_host.copy_(self._flag, non_blocking=True)
+            self._event.record()
+            self._event.synchronize()
+            return bool(self._flag_host)
 
     def _capture(self) -> dict:
         global captures
@@ -214,7 +234,8 @@ class CapturedSolve:
             self._pinned[key] = (pin, ev)
         pin.copy_(t, non_blocking=True)
         ev.record()
-        ev.synchronize()
+        with span("sync.graphed_fetch"):
+            ev.synchronize()
         return pin.numpy().copy()
 
 

@@ -14,7 +14,8 @@ Layout. The JAX package solves one scenario per `lax.while_loop` and
 batches with `jax.vmap`. Here `solve` is batch-first: every array carries
 the batch in front (z0 (B, 6), us (B, T, 2), ss (B, T+1, 8)), each lane
 has its own done flag, and the loop reads "every lane done" on the host
-once per iteration (`host_reads` counts those reads). The body runs on
+once per iteration (`host_reads` counts those reads; each is the span
+`sync.ilqr`, `obs.span`). The body runs on
 every lane and a lane that is done keeps its state, its `n_iters` and its
 `converged`, which is what `jax.vmap` of the `while_loop` does. One
 scenario is B = 1: `solve` takes z0 (6,) and returns unbatched results.
@@ -43,6 +44,7 @@ from ..models.costs import (ref_state_vector, scaled_solver_knobs,
 from ..models.obstacles import (blob_concave_bl, blob_terms_bl,
                                 obstacle_curv_xy, obstacle_grad_xy,
                                 obstacle_knot_cost)
+from ..obs.timers import span
 from ..ops.consts import const
 from .boxqp import solve_boxqp_2d
 from .types import SolveResult
@@ -602,7 +604,9 @@ def solve(z0: torch.Tensor, coeffs: torch.Tensor, p: MPCParams,
         # every lane still running has run every iteration so far, so the
         # cap is read on the host and "all done" once per iteration
         host_reads += 1
-        if bool(st.done.all()):
+        with span("sync.ilqr"):
+            done = bool(st.done.all())
+        if done:
             break
         st = iterate(prob, st)
     return result(prob, st)

@@ -37,11 +37,13 @@ from typing import NamedTuple
 
 import torch
 
+from ..obs.timers import span
 from ..ops.scan import associative_scan
 from .boxqp import inv2, solve_boxqp_2d
 
-# host reads of the active-set loop's exit condition and sweeps run (every
-# lane's sweep counted once per batch), summed over calls
+# host reads of the active-set loop's exit condition (each the span
+# `sync.riccati`) and sweeps run (every lane's sweep counted once per
+# batch), summed over calls
 host_reads = 0
 sweeps = 0
 
@@ -270,7 +272,8 @@ def parallel_gains_boxed(A, B, l_s, l_u, l_ss, l_uu, l_us, V_s, V_ss,
                              (Ks, Ks_n), (Q_u, Q_u_n), (Q_uu, Q_uu_n)):
                 dst.index_copy_(0, idx, src)
         host_reads += 1
-        idx = idx[ch]
+        with span("sync.riccati"):
+            idx = idx[ch]
         if idx.numel() == 0:
             break
 

@@ -1067,3 +1067,70 @@ def test_captured_tracker_cycle_equals_eager_on_the_card(dev):
     a, b = lockstep_cycles(trs, 20, traj=traj)
     rec = records_equal(a, b)
     assert rec["equal"], rec
+
+
+# The program's spans (obs.span) on the card.
+def _annotations(prof, path):
+    """The names of a profiler's `user_annotation` ranges, in start order."""
+    import json
+
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())
+    if isinstance(events, dict):
+        events = events["traceEvents"]
+    return [e["name"] for e in sorted(
+        (e for e in events if e.get("cat") == "user_annotation"
+         and e.get("ph") == "X"), key=lambda e: float(e["ts"]))]
+
+
+def test_traced_serving_call_spans_on_the_card(dev, tmp_path):
+    """After a warm-up call of the serving cell's shape (131,072 robots,
+    N=30, 10 cycles), one traced call shows one `k1.dispatch` (holding
+    `k1.prepare` and `k1.launch`) per cycle, and no kernel build and no
+    graph capture."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cycles = 10
+    z0s, coeffs = _scen(dev, 131072, seed=3)
+    p = MPCParams.reference_defaults().astype(torch.float32, dev)
+    receding_horizon_rollout(z0s, coeffs, p, PROD, n_cycles=cycles)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        receding_horizon_rollout(z0s, coeffs, p, PROD, n_cycles=cycles)
+        torch.cuda.synchronize()
+    names = _annotations(prof, tmp_path / "trace.json")
+    for n in ("serve.cycle", "serve.solve", "k1.dispatch", "k1.prepare",
+              "k1.launch", "dispatch.lane_inputs", "dispatch.result"):
+        assert names.count(n) == cycles, (n, names.count(n))
+    assert names.count("serve.stack") == 1
+    assert "kernels.build" not in names and "graphed.capture" not in names
+
+
+def test_captured_planner_cycle_spans_on_the_card(dev):
+    """After its warm-up (the capture), one captured planner cycle under a
+    collector (no profiler): one prologue and one epilogue replay, one
+    body replay per SQP iteration and a flag read after each but the
+    last of a solve that reached the cap; no capture."""
+    from mpc_ros_tpu_torch import obs
+    from mpc_ros_tpu_torch.sim import get_shape
+
+    plan = get_shape("infinity")
+    pl = _loop_planner(dev, True)
+    pl.set_plan(plan, np.array(plan[0]))
+    for _ in range(3):
+        ok, _, _ = pl.compute_velocity_commands(np.array(plan[0]),
+                                                (0.0, 0.0))
+    with obs.collect(obs.PhaseTimers()) as tm:
+        ok, _, info = pl.compute_velocity_commands(np.array(plan[0]),
+                                                   (0.0, 0.0))
+    assert ok and info.tracking is not None
+    assert info.tracking.solve is not None
+    n = int(info.tracking.solve.n_iters)
+    cap = pl.solver_cfg.max_sqp_iters
+    c = {k: v["count"] for k, v in tm.summary().items()}
+    assert c["planner.cycle"] == c["planner.track"] == 1
+    assert c["graphed.prologue"] == c["graphed.epilogue"] == 1
+    assert c["graphed.body"] == n
+    assert c["sync.graphed_flag"] == (n if n < cap else n - 1)
+    assert "graphed.capture" not in c and "kernels.build" not in c

@@ -3,6 +3,7 @@
 
     python3 tools/closed_loop_profile.py [--warm 30] [--cycles 20]
                                          [--eager] [--sync-debug]
+                                         [--spans N]
 
 Builds the planner of `chip_smoke.py`'s phase 24 (float32, N=20, the
 planner configuration of tests/test_closed_loop.py) on the card, runs the
@@ -13,9 +14,21 @@ cycle (the sum of the CUDA kernels' and copies' own time), the device's
 busy share of the wall time, kernel launches, graph launches,
 host-to-device and device-to-host copies and synchronizations (stream,
 device and event) per cycle, SQP iterations and host reads per cycle, the
-graph captures made, and the ten operators that take the most host time.
-A trace with no device time prints `"device_ms_per_cycle": null` (not
-measured).
+graph captures made, the ten operators that take the most host time,
+and the host ms per cycle of each of the program's spans (`obs.span`:
+`planner.cycle`, `planner.plan`, `planner.track`, the captured solve's
+`graphed.prologue`, `graphed.body`, `graphed.epilogue`, its reads
+`sync.graphed_flag` and `sync.graphed_fetch`), timed by a collector
+(`obs.collect`) over the traced cycles. A trace with no device time
+prints `"device_ms_per_cycle": null` (not measured).
+
+`--spans N` times N tracking cycles after the warm cycles with the
+collector alone, no profiler (which would record each of an iteration's
+graph nodes and stretch the cycle), restarting the course at its goal,
+and prints instead: per SQP iteration count, the cycles and each span's
+median and mean host ms per cycle, and for the most common count each
+span's median over each block of 100 such cycles (a change of speed
+within the process shows there, in the span that holds it).
 
 The cycle runs through the captured solve (`solver/graphed.py`) unless
 `--eager` is given, which sets the tracker's private `_graphed` False (the
@@ -53,11 +66,13 @@ def main() -> None:
     ap.add_argument("--cycles", type=int, default=20)
     ap.add_argument("--eager", action="store_true")
     ap.add_argument("--sync-debug", action="store_true")
+    ap.add_argument("--spans", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("closed_loop_profile.py needs a CUDA device")
     from torch.profiler import ProfilerActivity, profile
 
+    from mpc_ros_tpu_torch import obs
     from mpc_ros_tpu_torch.config import MPCParams, PlannerConfig, SolverConfig
     from mpc_ros_tpu_torch.planner import MPCPlanner
     from mpc_ros_tpu_torch.sim import get_shape, make_plant
@@ -78,26 +93,43 @@ def main() -> None:
         SolverConfig(n_steps=20), PlannerConfig(local_plan_length=2.5),
         device=dev)
     plan = get_shape("infinity")
-    plant = make_plant("diff_drive", plan[0].copy(), 0.1, planner.params)
     planner.initialize()
     planner.tracker._graphed = not args.eager
-    planner.set_plan(plan, plant.pose)
+    course = {}
     iters = []
 
-    def cycle():
+    def start():
+        course["plant"] = make_plant("diff_drive", plan[0].copy(), 0.1,
+                                     planner.params)
+        planner.set_plan(plan, course["plant"].pose)
+
+    def cycle(restart_at_goal=False):
+        """One planner cycle; its SQP iterations. With `restart_at_goal`,
+        a cycle that does not track (the course's end) restarts the
+        course and returns None."""
+        plant = course["plant"]
         ok, cmd, info = planner.compute_velocity_commands(
             plant.pose, plant.feedback_vel)
+        if restart_at_goal and not (ok and info.tracking is not None):
+            start()
+            return None
         assert ok and info.tracking is not None, info
         iters.append(info.tracking.solve.n_iters)
         plant.step(*cmd)
+        return iters[-1]
 
+    start()
     for _ in range(args.warm):
         cycle()
     iters.clear()
+    if args.spans:
+        out = span_report(card, args, cycle, obs)
+        print(json.dumps(out), flush=True)
+        return
     reads = ilqr.host_reads
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with obs.collect(obs.PhaseTimers()) as timers, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.cycles):
             cycle()
@@ -136,6 +168,8 @@ def main() -> None:
         "captures": None if graphed is None else graphed.captures,
         "top_host_ops_ms_per_cycle": {
             e.key: e.self_cpu_time_total / n / 1e3 for e in top},
+        "spans_ms_per_cycle": {k: v["total_s"] / n * 1e3
+                               for k, v in timers.summary().items()},
     }
     if args.sync_debug:
         with warnings.catch_warnings(record=True) as caught:
@@ -154,6 +188,38 @@ def main() -> None:
         out["sync_debug_warnings_per_cycle"] = len(caught) / n
         out["sync_debug_kinds"] = kinds
     print(json.dumps(out), flush=True)
+
+
+def span_report(card, args, cycle, obs) -> dict:
+    """`--spans`: per tracking cycle, each span's host ms (the
+    collector's totals before and after the cycle), grouped by the
+    cycle's SQP iterations."""
+    rows = []
+    timers = obs.PhaseTimers()
+    with obs.collect(timers):
+        while len(rows) < args.spans:
+            before = dict(timers.totals)
+            n = cycle(restart_at_goal=True)
+            if n is not None:
+                rows.append((int(n), {
+                    k: (v - before.get(k, 0.0)) * 1e3
+                    for k, v in timers.totals.items()}))
+    names = sorted({k for _, r in rows for k in r})
+    by_iters = {}
+    for n in sorted({n for n, _ in rows}):
+        sel = [r for m, r in rows if m == n]
+        by_iters[n] = {"cycles": len(sel), "spans": {
+            k: {"median_ms": float(np.median([r.get(k, 0.0) for r in sel])),
+                "mean_ms": float(np.mean([r.get(k, 0.0) for r in sel]))}
+            for k in names}}
+    common = max(by_iters, key=lambda n: by_iters[n]["cycles"])
+    sel = [r for m, r in rows if m == common]
+    blocks = [{k: float(np.median([r.get(k, 0.0) for r in sel[i:i + 100]]))
+               for k in names} for i in range(0, len(sel), 100)]
+    return {"card": card, "path": "eager" if args.eager else "graphed",
+            "cycles": len(rows), "warm_cycles": args.warm,
+            "by_iters": by_iters, "common_iters": common,
+            "blocks_of_100": blocks}
 
 
 if __name__ == "__main__":
