@@ -198,7 +198,19 @@ them and never falls back to the CPU. Phases, one output line each:
     lateness, the course's completion and the errors, printed; gated on
     finite commands and a clean stop;
 41. the examples `fleet_serving`, `fleet_planner --fleet 64 --cycles 20`
-    and `custom_model` run to their end on the card.
+    and `custom_model` run to their end on the card;
+42. K1's persistent grid forced at full residency on the batch cell's
+    shape (B=524,288 cold, the benchmark's solver and weights): bit for
+    bit one thread per lane, lane by lane against the plain version, its
+    counts from a call of its own and each kernel's launches and device
+    ms from a profiler trace of that call, both modes timed; then a
+    fixture of planted NaN/inf lanes resumed done over 64 tiles on a
+    32-block grid: bit for bit one thread per lane, tiles re-solved, the
+    planted lanes held to the plain version. Late in a long process the
+    profiler's trace can come back without device events (as
+    `kernel_own_ms`'s fallback to events shows); the kernels are then
+    reported as not traced rather than checked. It runs last: placed
+    after phase 5, the phases after it ran slower on the card.
 
 Every timed window of the whole-solve kernel (phases 4, 5, 10-12, 16,
 18, 19) reports the median, min and max of WINDOW launches, the SM clock
@@ -3839,6 +3851,159 @@ def examples_on_card(dev) -> dict:
     return out
 
 
+# Phase 42: the benchmark's solver and weights (benchmark/configs/
+# ref_nlp_n30.json, `MPCParams.reference_defaults()`), on whose cold
+# batches the launcher's rule takes the persistent grid; the retiling
+# fixture's batch (64 tiles) on a grid of 32 blocks
+GRID_CFG = SolverConfig(n_steps=N_STEPS, max_sqp_iters=12, ls_iters=4,
+                        ddp=True, tol_grad=1e-4, mu_init=1e-6, ddp_gate=2.5)
+GRID_TILES = 64
+GRID_SMALL = 32 * solve_mega.TILE
+
+
+def bits_equal(x, y) -> bool:
+    """Every output of two K1 calls equal bit for bit (NaN included)."""
+    return all(torch.equal(a.contiguous().view(torch.int32),
+                           b.contiguous().view(torch.int32))
+               for a, b in zip(x, y))
+
+
+def k1_kernels(prof) -> dict:
+    """Launches and summed device ms of each K1 kernel, and of the memsets,
+    in a `torch.profiler` trace."""
+    out = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = next((k for k in ("solve_mega_retile", "solve_mega_kernel")
+                     if k in e.name), None)
+        if name is None and "memset" in e.name.lower():
+            name = "memset"
+        if name is None:
+            continue
+        rec = out.setdefault(name, {"launches": 0, "ms": 0.0})
+        rec["launches"] += 1
+        rec["ms"] += e.time_range.elapsed_us() / 1e3
+    return out
+
+
+def persistent_grid(dev) -> dict:
+    """Phase 42: K1's persistent grid forced at full residency
+    (`testing.k1_grid`) on the batch cell's shape, B=524,288 cold at the
+    benchmark's solver and weights: bit for bit one thread per lane, and
+    against the plain version on the same inputs lane by lane (us and cost
+    within LANE_TOL on LANE_FRAC of the lanes, the converged flags and the
+    iterations matched on the parity gates' shares; the parity gates
+    printed); its counts read from one call of its own after they are
+    zeroed (calls, refilled lanes, re-solved tiles) with each kernel's
+    launches and device ms from a profiler trace of that call, checked
+    where the trace holds device events (`kernels_traced`); the grid
+    and one thread per lane timed (`device_window`). Then lanes planted
+    with NaN, inf and an overflowing coefficient, half of them resumed
+    done beside running ones, over 64 tiles on a 32-block grid: bit for
+    bit one thread per lane, tiles re-solved, and the planted lanes held
+    to the plain version (`nonfinite_agreement`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpc_ros_tpu_torch.testing import (k1_grid, nonfinite_agreement,
+                                           plant_nonfinite)
+
+    cfg = GRID_CFG
+    variant = solve_mega.resolve_knobs(cfg, torch.float32).variant
+    blocks, n_sm = solve_mega._residency(variant, dev)
+    slots = blocks * n_sm * solve_mega.TILE
+    weights = MPCParams.reference_defaults()
+    z0s, coeffs = scenarios(42, B_MAIN, dev)
+    ins = lane_inputs(z0s, coeffs, weights.astype(torch.float32, dev), cfg)
+
+    def call():
+        return solve_mega.solve_mega_cuda(*ins, cfg)
+
+    with k1_grid(0):
+        lane = call()
+        lane_win = device_window(call)
+    with k1_grid(slots):
+        call()
+        torch.cuda.synchronize()
+        reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            grid = call()
+            torch.cuda.synchronize()
+        counts = dict(calls=solve_mega.launches,
+                      refilled_lanes=int(solve_mega.refilled_lanes),
+                      retiled_tiles=int(solve_mega.retiled_tiles))
+        grid_win = device_window(call)
+    kernels = k1_kernels(prof)
+    plain = solve_mega.solve_mega_plain(*ins, cfg)
+    within = lanes_within([(grid[1], plain[1]), (grid[2], plain[2])],
+                          LANE_TOL)
+    gates = outputs_gates(grid, plain, cfg.n_steps)
+    out = dict(batch=B_MAIN, slots=slots, blocks_per_sm=blocks, sms=n_sm,
+               equals_one_lane_per_thread=bits_equal(grid, lane),
+               counts=counts, kernels=kernels,
+               kernels_traced=bool(kernels),
+               grid=grid_win, one_lane_per_thread=lane_win,
+               mean_iters=float(lane[4].mean()),
+               pace=float(solve_mega.pace(lane[4])),
+               lanes_within_frac=float(within.float().mean()),
+               conv_match_frac=gates["conv_match_frac"],
+               iters_match_frac=gates["iters_match_frac"],
+               vs_plain=gates)
+    # the retiling fixture
+    B = GRID_TILES * solve_mega.TILE
+    z0s, coeffs = scenarios(43, B, dev)
+    clean = lane_inputs(z0s, coeffs, params(B, dev, False), cfg)
+    lanes = [5 + 131 * i for i in range(60)]
+    planted = plant_nonfinite({"z": clean[0], "coeffs": clean[1]}, lanes)
+    bad = (planted["z"], planted["coeffs"]) + tuple(clean[2:])
+    done = torch.zeros(B, device=dev)
+    done[lanes[::2] + [9, 60, 1000, 4000]] = 1.0
+    resume = (done, torch.zeros_like(done), torch.full_like(done, 1e-6),
+              torch.full_like(done, float("inf")))
+    with k1_grid(GRID_SMALL):
+        ref = solve_mega.solve_mega_cuda(*clean, cfg, resume=resume)
+        reset_launches()
+        tiled = solve_mega.solve_mega_cuda(*bad, cfg, resume=resume)
+        tiled_counts = dict(calls=solve_mega.launches,
+                            refilled_lanes=int(solve_mega.refilled_lanes),
+                            retiled_tiles=int(solve_mega.retiled_tiles))
+    with k1_grid(0):
+        tiled_lane = solve_mega.solve_mega_cuda(*bad, cfg, resume=resume)
+    agree = nonfinite_agreement(
+        tiled, solve_mega.solve_mega_plain(*bad, cfg, resume=resume), ref,
+        lanes, LANE_TOL)
+    out["retiling"] = dict(
+        batch=B, slots=GRID_SMALL, planted_lanes=len(lanes),
+        counts=tiled_counts,
+        equals_one_lane_per_thread=bits_equal(tiled, tiled_lane),
+        vs_plain=agree)
+    emit("persistent_grid", **out)
+    faults = []
+    if not out["equals_one_lane_per_thread"]:
+        faults.append("the grid differs from one thread per lane")
+    if counts != dict(calls=1, refilled_lanes=B_MAIN - slots,
+                      retiled_tiles=0):
+        faults.append(f"counts {counts}")
+    if kernels and {k: v["launches"] for k, v in kernels.items()
+                    if k != "memset"} != {"solve_mega_kernel": 1,
+                                          "solve_mega_retile": 1}:
+        faults.append(f"kernels {kernels}")
+    if not (out["lanes_within_frac"] >= LANE_FRAC
+            and gates["conv_match_frac"] >= gates["limits"]["conv_match_frac"]
+            and gates["iters_match_frac"]
+            >= gates["limits"]["iters_match_frac"]):
+        faults.append("the grid against the plain version")
+    rt = out["retiling"]
+    if not (rt["equals_one_lane_per_thread"] and agree["ok"]
+            and agree["planted_lanes_with_nan"]
+            and rt["counts"]["retiled_tiles"] > 0
+            and rt["counts"]["refilled_lanes"] == B - GRID_SMALL):
+        faults.append(f"the retiling fixture {rt}")
+    if faults:
+        raise SystemExit(f"persistent grid: {'; '.join(faults)}")
+    return out
+
+
 def build_pairs(survey: bool = False) -> set:
     """Every (kernel, variant) pair the phases launch (the survey's alone
     with `survey`): the whole-solve kernel's variants, then the fused
@@ -3949,6 +4114,7 @@ def main(argv) -> None:
     dryrun(dev)
     node_realtime(dev)
     examples_on_card(dev)
+    pg = persistent_grid(dev)
     fleet_err = max(fh[k]["k1"]["vs_plain"]["max_du"]
                     for k in ("plain", "bicycle", "blobs"))
     fleet_err = max(fleet_err, fd["k1"]["vs_plain"]["max_du"])
@@ -4026,6 +4192,12 @@ def main(argv) -> None:
               fm["k1"]["vs_plain"]["max_du"], fm["k1"]["kernel_ms"],
               fm["k1"]["plain_ms"],
               (fm["k1"]["bound_ms"], fm["k1"]["bound_by"])),
+        # the same kernel on its persistent grid at the batch cell's
+        # shape: one call, two kernels (phase 42)
+        entry("solve_mega[grid]", "solve_mega.cu",
+              "mpc_ros_tpu/kernels/solve_pallas.py:53",
+              pg["counts"]["calls"], pg["vs_plain"]["max_du"],
+              pg["grid"]["median_ms"], None, (None, None)),
         entry("backward_fused", "backward_fused.cu",
               "mpc_ros_tpu/kernels/backward_fused_pallas.py:52",
               rm["launches"]["backward_fused"], st["bwd_err"], rm["bwd_ms"],

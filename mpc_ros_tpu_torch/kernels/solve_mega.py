@@ -33,7 +33,11 @@ blobs and per-knot setpoints; `solve_mega_scheduled` runs it under the
 single, sorted and compact schedules.
 
 `solve_mega` sends CPU tensors to `solve_mega_plain` and CUDA tensors to
-`solve_mega_cuda`, which launches the kernel or raises.
+`solve_mega_cuda`, which launches the kernel or raises: one thread per
+lane, or for a batch of many lanes per resident thread whose tiles wait
+long on their slowest lanes a persistent grid whose threads take the next
+lane when theirs is done (`refill_slots`, `grid_pays`), with the same
+outputs bit for bit.
 
 Spans (`obs.span`): `solve_mega_cuda` is `k1.dispatch`, holding
 `k1.prepare` (the checks, the knobs, the contiguous inputs, the build's
@@ -69,7 +73,9 @@ _M = 2
 # returns sub = 1 (B an odd multiple of 128).
 TILE = 128
 
-# launches of the CUDA kernel by `solve_mega_cuda` (and nowhere else)
+# calls of `solve_mega_cuda` (and nowhere else) that launched the kernel:
+# one kernel one thread per lane, on the persistent grid a memset of its
+# int buffer and two kernels (`solve_mega_kernel`, `solve_mega_retile`)
 launches = 0
 # What the schedules ran, counted by the schedule code itself: solve
 # passes (kernel launches on CUDA tensors, plain runs on CPU tensors), the
@@ -79,6 +85,26 @@ launches = 0
 passes = 0
 tail_lanes = 0
 last_need = None
+# What the last launch's persistent grid did (`refill_slots`), each a 0-d
+# int32 tensor on the card read after the call, or 0 when the launch ran
+# one lane per thread: the lanes a thread took after its first, and the
+# tiles solved again for a lane that blends after it is done.
+refilled_lanes = 0
+retiled_tiles = 0
+
+# The persistent grid engages at this many lanes per resident thread or
+# more (`refill_slots`), and where the tiles of the last call of the same
+# shape waited long on their slowest lanes (`grid_pays`). On an H100 a
+# trip of the grid (one iteration of each thread's lane) costs ~1.5x an
+# iteration one thread per lane, and a lane takes one trip more than its
+# iterations, while one thread per lane a tile runs to its slowest lane:
+# the grid pays where the mean of the tiles' most iterations is at least
+# GRID_PACE x (the mean iterations + 1). At the benchmark's weights a cold
+# batch of 524,288 reads 1.74 (the grid 15% faster); the same batch
+# warm-started 1.19 and a cold one at MPCParams()'s weights 1.10 (the grid
+# 12-18% slower).
+REFILL_LANES_PER_SLOT = 8
+GRID_PACE = 1.5
 
 MODELS = ("diff_drive", "bicycle")
 
@@ -883,9 +909,59 @@ def scratch_shapes(T: int, n_ls: int, B: int) -> list:
     """The kernel's scratch buffers, which the wrapper allocates: the
     rollout's trig cache traj_g (T, 4, B), the gains ks (T, 2, B) and Ks
     without K's structurally zero column (T, 2, 7, B), and the line
-    search's clamped controls cand_u (n_ls, T, 2, B). The trajectory
-    itself lives in the outputs ss and us."""
+    search's clamped controls cand_u (n_ls, T, 2, B), B being the batch
+    or, on the persistent grid, its threads. One lane per thread, the
+    trajectory itself lives in the outputs ss and us."""
     return [(T, 4, B), (T, _M, B), (T, _M, _N - 1, B), (n_ls, T, _M, B)]
+
+
+def work_rows(T: int, n_blobs: int = 0, setp: bool = False) -> int:
+    """Rows of the persistent grid's slot-indexed working set (each as long
+    as the grid's threads): the trajectory's (T+1, 8) states, of which
+    rows 0-5 are used, and (T, 2) controls, then the setpoint profile
+    (T+1, 3) and the blobs' 4 x n_blobs that the variant reads at every
+    knot, copied in once per lane."""
+    return (T + 1) * _N + T * _M + 3 * (T + 1) * bool(setp) + 4 * n_blobs
+
+
+def refill_slots(B: int, blocks_per_sm: int, n_sm: int) -> int:
+    """The threads of K1's persistent grid for a batch of B lanes: every
+    thread the card holds at once (`blocks_per_sm` blocks of TILE threads
+    on each of `n_sm` SMs) where the batch has at least
+    REFILL_LANES_PER_SLOT lanes for each, else 0 (one thread per lane). On
+    the persistent grid a thread whose lane is done takes the next one, so
+    no warp or block runs to its slowest lane."""
+    slots = max(0, int(blocks_per_sm)) * max(0, int(n_sm)) * TILE
+    return slots if slots and B >= REFILL_LANES_PER_SLOT * slots else 0
+
+
+def pace(iters) -> torch.Tensor:
+    """A call's pacing by its tiles, 0-d: the mean of each whole TILE-lane
+    tile's most SQP iterations over (the mean iterations + 1). The
+    persistent grid pays at GRID_PACE or more."""
+    n = iters.shape[-1] // TILE * TILE
+    tiles = iters[..., :n].reshape(-1, TILE).amax(dim=1).mean()
+    return tiles / (iters.mean() + 1.0)
+
+
+def grid_pays(seen) -> bool:
+    """Whether the last call of a shape (`_PACE`: its pacing copied to
+    pinned memory, the copy's event, the last verdict read) says the
+    persistent grid pays; a copy still in flight keeps the verdict before
+    it, and a shape not seen yet runs one thread per lane."""
+    if seen is None:
+        return False
+    if seen["event"].query():
+        seen["pays"] = float(seen["host"]) >= GRID_PACE
+    return seen["pays"]
+
+
+def tile_words(B: int) -> int:
+    """Ints of the persistent grid's launch buffer: the claim counter, the
+    refilled lanes and the re-solved tiles, then two per TILE-lane tile
+    (its most iterations, and its lanes that blend after they are
+    done)."""
+    return 3 + 2 * (-(-B // TILE))
 
 
 # Floats per knot that one SQP iteration of one lane moves through device
@@ -937,13 +1013,33 @@ def occupancy(variant) -> dict:
     from . import _build
 
     launch = _build.load("solve_mega", variant)
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 7)()
     fn = launch.lib.mpc_solve_mega_occupancy
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     _build.check(launch, fn(out), "solve_mega occupancy")
     return dict(zip(("registers", "local_bytes", "smem_bytes_per_block",
-                     "blocks_per_sm"), out))
+                     "blocks_per_sm", "refill_registers",
+                     "refill_local_bytes", "refill_blocks_per_sm"), out))
+
+
+_RESIDENCY: dict = {}
+# per (variant, horizon, B, device): the pacing of the last call that the
+# shape rule let onto the persistent grid, read without a synchronization
+_PACE: dict = {}
+
+
+def _residency(variant, dev) -> tuple:
+    """(blocks per SM of the persistent grid, SMs) of a variant on a
+    device, read once."""
+    key = (tuple(variant), dev.index)
+    got = _RESIDENCY.get(key)
+    if got is None:
+        with torch.cuda.device(dev):
+            got = (occupancy(variant)["refill_blocks_per_sm"],
+                   torch.cuda.get_device_properties(dev).multi_processor_count)
+        _RESIDENCY[key] = got
+    return got
 
 
 
@@ -952,10 +1048,13 @@ def solve_mega_cuda(zT, cT, pp, lb, ub, u0, cfg, resume=None,
     """Launch the hand-written kernel (`csrc/solve_mega.cu`) on CUDA
     float32 tensors; raises on anything else. Allocates every output and
     scratch buffer; launches on the current stream and does not
-    synchronize. `lockstep=True` launches the per-block loop of
-    `done_frac < 1` whatever `done_frac`; at `done_frac = 1` it computes
-    what the per-thread loop does, so the two can be timed against each
-    other. Blobs and setpoints select the kernel's BLOBS and SETP
+    synchronize. At `done_frac = 1` a batch of `REFILL_LANES_PER_SLOT`
+    lanes or more per resident thread runs on the persistent grid where
+    the last call of its shape paced at GRID_PACE or more (`refill_slots`,
+    `grid_pays`), bit for bit what one thread per lane computes.
+    `lockstep=True` launches the per-block loop of `done_frac < 1` whatever
+    `done_frac`; at `done_frac = 1` it computes what the per-thread loop
+    does, so the two can be timed against each other. Blobs and setpoints select the kernel's BLOBS and SETP
     variants (the number of blobs is a runtime argument), the bicycle
     family its BICYCLE variant. `diag`: the line-search diagnostic
     (`check_diag`), off the main path."""
@@ -1012,40 +1111,108 @@ def _cuda_inputs(zT, cT, pp, lb, ub, u0, cfg, resume, lockstep, blobs, refs,
     return _build.load("solve_mega", kn.variant), kn, ins, opt
 
 
+def outputs(T: int, B: int, slots: int, dev) -> tuple:
+    """The kernel's outputs, uninitialized: ss (T+1, 8, B), us (T, 2, B)
+    and six (B,) tensors. One thread per lane (`slots` = 0) they are
+    batch-minor, as a warp writes a row of 32 neighbouring lanes at once.
+    On the persistent grid, where a warp's lanes are scattered, they are
+    views of lane-major arrays, so that each thread writes whole rows of
+    its own lane: ss of a (B, T+1, 8) array, us of its rows 6-7 of knots
+    1..T (the control before each knot is the knot's control), and the
+    six of one (B, 6) array."""
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    if not slots:
+        return empty(T + 1, _N, B), empty(T, _M, B), [empty(B)
+                                                      for _ in range(6)]
+    ss = empty(B, T + 1, _N)
+    return (ss.permute(1, 2, 0), ss[:, 1:, 6:].permute(1, 2, 0),
+            list(empty(B, 6).unbind(1)))
+
+
 def _cuda_launch(launch, kn, ins, opt, diag):
     """`solve_mega_cuda`'s outputs and scratch, allocated, and the
-    launcher's call on the current stream."""
+    launcher's call on the current stream: one thread per lane, or the
+    persistent grid (`_grid_choice`) with its slot-indexed scratch and
+    working set and its int buffer, whose counts become `refilled_lanes`
+    and `retiled_tiles`; a call the shape rule lets onto the grid queues
+    its pacing for the next (`_observe`)."""
+    global refilled_lanes, retiled_tiles
     from . import _build
 
     T, B, P = kn.T, ins[0].shape[-1], ins[1].shape[0]
     dev = ins[0].device
     f32 = torch.float32
+    key, slots = (None, 0) if kn.tile_exit else _grid_choice(kn, B, dev)
 
     def empty(*shape):
         return torch.empty(shape, dtype=f32, device=dev)
 
-    ss, us = empty(T + 1, _N, B), empty(T, _M, B)
-    outs = [empty(B) for _ in range(6)]
-    scratch = [empty(*shape) for shape in scratch_shapes(T, kn.n_ls, B)]
+    ss, us, outs = outputs(T, B, slots, dev)
+    scratch = [empty(*shape)
+               for shape in scratch_shapes(T, kn.n_ls, slots or B)]
+    work = tiles = None
+    if slots:
+        work = empty(work_rows(T, kn.n_blobs, kn.has_setp), slots)
+        tiles = torch.empty(tile_words(B), dtype=torch.int32, device=dev)
     ptr = [ctypes.c_void_p(a.data_ptr()) for a in ins]
     ptr += [ctypes.c_void_p(None if a is None else a.data_ptr())
             for a in opt]
     ptr += [ctypes.c_void_p(a.data_ptr()) for a in [ss, us] + outs]
     ptr += [ctypes.c_void_p(None if diag is None else diag.data_ptr())]
     ptr += [ctypes.c_void_p(a.data_ptr()) for a in scratch]
+    ptr += [ctypes.c_void_p(None if a is None else a.data_ptr())
+            for a in (work, tiles)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(
             *ptr, ctypes.c_int(P), ctypes.c_int(B), ctypes.c_int(T),
             ctypes.c_int(kn.max_iters), ctypes.c_int(kn.n_done_needed),
-            ctypes.c_int(kn.n_blobs), ctypes.c_float(kn.sign),
+            ctypes.c_int(kn.n_blobs), ctypes.c_int(slots),
+            ctypes.c_float(kn.sign),
             ctypes.c_float(kn.tol_grad), ctypes.c_float(kn.tol_cost_eff),
             ctypes.c_float(kn.mu_min), ctypes.c_float(kn.mu_max),
             ctypes.c_float(kn.mu_factor), ctypes.c_float(kn.ddp_gate),
             *(ctypes.c_int(int(v)) for v in kn.variant),
             ctypes.c_void_p(stream))
     _build.check(launch, err, "solve_mega")
+    refilled_lanes = 0 if tiles is None else tiles[1]
+    retiled_tiles = 0 if tiles is None else tiles[2]
+    if key is not None:
+        _observe(key, outs[2], dev)
     return (ss, us, *outs)
+
+
+def _grid_choice(kn, B: int, dev) -> tuple:
+    """(the key under which a call's pacing is kept, or None; the threads
+    of the persistent grid, or 0 for one thread per lane) of a per-thread
+    exit over B lanes: the grid where the shape rule lets the batch on
+    (`refill_slots`) and the last call of the same variant, horizon and
+    batch paced at GRID_PACE or more (`grid_pays`). The tests replace it
+    to launch a given grid."""
+    slots = refill_slots(B, *_residency(kn.variant, dev))
+    if not slots:
+        return None, 0
+    key = (kn.variant, kn.T, B, dev.index)
+    return key, slots if grid_pays(_PACE.get(key)) else 0
+
+
+def _observe(key, iters, dev) -> None:
+    """Queue the pacing of a call (`pace` of its iterations) into pinned
+    memory for the next call of its shape, unless the last copy is still
+    in flight."""
+    seen = _PACE.get(key)
+    if seen is None:
+        seen = _PACE[key] = {
+            "host": torch.zeros((), dtype=torch.float32, pin_memory=True),
+            "event": torch.cuda.Event(), "pays": False}
+    if not seen["event"].query():
+        return
+    seen["pays"] = float(seen["host"]) >= GRID_PACE
+    with torch.cuda.device(dev):
+        seen["host"].copy_(pace(iters), non_blocking=True)
+        seen["event"].record()
 
 
 def solve_mega(zT, cT, pp, lb, ub, u0, cfg, resume=None, blobs=None,

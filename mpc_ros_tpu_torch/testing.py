@@ -32,6 +32,22 @@ def torch_threads(n: int):
         torch.set_num_threads(old)
 
 
+@contextlib.contextmanager
+def k1_grid(slots: int):
+    """K1's launches inside on a persistent grid of `slots` threads (a
+    multiple of 128 no larger than the card holds at once), or one thread
+    per lane (0), whatever the launcher's rule would pick, to hold the two
+    against each other."""
+    from .kernels import solve_mega
+
+    rule = solve_mega._grid_choice
+    solve_mega._grid_choice = lambda kn, B, dev: (None, slots)
+    try:
+        yield
+    finally:
+        solve_mega._grid_choice = rule
+
+
 def numpy_scenarios(seed: int, batch: int, pose_scale: float = 0.3,
                     curve_scale: float = 0.25):
     """z0s (B, 6) and coeffs (B, 4) as float64 numpy arrays."""
