@@ -71,7 +71,7 @@ KERNELS = {
     # blobs, per-knot setpoints, bicycle)
     "solve_mega": Kernel(
         "solve_mega.cu", "mpc_solve_mega_f32",
-        (_P,) * 27 + (_I,) * 7 + (_F,) * 7 + (_I,) * 8 + (_P,),
+        (_P,) * 27 + (_I,) * 8 + (_F,) * 7 + (_I,) * 8 + (_P,),
         _mega_flags),
     # variant () — one instantiation
     "backward_fused": Kernel(

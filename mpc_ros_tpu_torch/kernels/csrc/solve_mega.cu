@@ -17,7 +17,13 @@
 // threads iterate in lockstep, a done thread skips the body, and at the top
 // of every iteration `__syncthreads_count(done)` stops the whole block once
 // n_done_needed of its lanes are done. No thread leaves that loop on its
-// own, so every thread reaches every barrier. An optional resume state
+// own, so every thread reaches every barrier. The card starts a launch's
+// blocks in index order, so the tiles that run last, on which the SMs
+// wait while the launch drains, are the batch's last; block b solves tile
+// (b + tile_shift) mod tiles instead, with a shift the launcher changes
+// from launch to launch (solve_mega.tile_shift), so that which tiles run
+// last is not fixed by the batch's layout. A tile's lanes and result do
+// not depend on the block that runs it. An optional resume state
 // (done, conv, mu, gnorm) replaces the cold start of the loop state, as the
 // TPU kernel's `has_resume` does; the schedules (solve_mega.py) run the
 // sorted and compact two-pass solves with it.
@@ -190,6 +196,7 @@ struct Args {
   float* Ks;          // (T, 2, 7, B)
   float* cand_u;      // (NLS, T, 2, B)
   int P, B, T, max_iters, n_done_needed;
+  int tile_shift;  // TILE_EXIT: block b solves tile (b + tile_shift) % tiles
   float sign, tol_grad, tol_cost_eff, mu_min, mu_max, mu_factor, ddp_gate;
   const float* setp;  // (T+1, 3, B) per-knot setpoints (SETP)
   const float *bx, *by, *bg, *bw;  // (n_blobs, B) each (BLOBS)
@@ -551,7 +558,9 @@ __device__ __forceinline__ float reroll_blend(const Lane& L, const Problem& pr,
 template <int NLS, bool DDP, bool FAST, bool ADAPT, bool TILE_EXIT,
           bool BLOBS, bool SETP, bool BICYCLE>
 __device__ __forceinline__ void lane_loop(const Args& a) {
-  const int lane_i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int tile =
+      TILE_EXIT ? (blockIdx.x + a.tile_shift) % gridDim.x : blockIdx.x;
+  const int lane_i = tile * blockDim.x + threadIdx.x;
   // under TILE_EXIT the launcher takes B % kTile == 0 only, so no thread
   // of a block returns here and misses the block's barriers
   if (lane_i >= a.B) return;
@@ -2198,7 +2207,9 @@ __global__ void __launch_bounds__(kTile)
 // here), then the tiles' second solve. The persistent grid's outputs are
 // lane-major: ss (B, T+1, 8), whose rows 6-7 of knots 1..T are us (the
 // pointer us is not used), and the six per-lane outputs the columns of a
-// (B, 6) array (cost the first, done the last).
+// (B, 6) array (cost the first, done the last). `tile_shift` (the
+// per-tile exit only, else 0) starts the blocks at that tile: block b
+// solves tile (b + tile_shift) mod B / kTile.
 extern "C" int mpc_solve_mega_f32(
     const void* z0, const void* cf, const void* par, const void* lb,
     const void* ub, const void* u0, const void* resume, const void* setp,
@@ -2206,7 +2217,8 @@ extern "C" int mpc_solve_mega_f32(
     void* ss, void* us, void* cost, void* conv, void* iters, void* gnorm,
     void* mu, void* done, void* diag, void* traj_g, void* ks, void* Ks,
     void* cand_u, void* work, void* tiles, int P, int B, int T,
-    int max_iters, int n_done_needed, int n_blobs, int slots, float sign,
+    int max_iters, int n_done_needed, int n_blobs, int slots,
+    int tile_shift, float sign,
     float tol_grad, float tol_cost_eff, float mu_min, float mu_max,
     float mu_factor, float ddp_gate, int n_ls, int ddp, int fast,
     int adaptive, int tile_exit, int blobs, int setp_on, int bicycle,
@@ -2220,6 +2232,10 @@ extern "C" int mpc_solve_mega_f32(
       (bicycle != 0) != (MEGA_BICYCLE != 0))
     return MEGA_ERR_VARIANT;
   if (MEGA_TILE_EXIT != 0 && B % mega::kTile != 0) return MEGA_ERR_TILE;
+  if (tile_shift < 0 ||
+      (tile_shift > 0 &&
+       (MEGA_TILE_EXIT == 0 || tile_shift >= B / mega::kTile)))
+    return MEGA_ERR_TILE;
   if (MEGA_BLOBS != 0 && (n_blobs < 1 || bx == nullptr || by == nullptr ||
                           bg == nullptr || bw == nullptr))
     return MEGA_ERR_INPUT;
@@ -2254,6 +2270,7 @@ extern "C" int mpc_solve_mega_f32(
   a.T = T;
   a.max_iters = max_iters;
   a.n_done_needed = n_done_needed;
+  a.tile_shift = tile_shift;
   a.sign = sign;
   a.tol_grad = tol_grad;
   a.tol_cost_eff = tol_cost_eff;
@@ -2341,7 +2358,8 @@ extern "C" const char* mpc_cuda_error_string(int err) {
     return "library built for another (n_ls, ddp, fast, adaptive, "
            "tile_exit, blobs, setp, bicycle) variant";
   if (err == MEGA_ERR_TILE)
-    return "done_frac < 1 exits per 128-lane tile and needs B % 128 == 0";
+    return "done_frac < 1 exits per 128-lane tile and needs B % 128 == 0 "
+           "and a tile shift in [0, B / 128); one thread per lane takes none";
   if (err == MEGA_ERR_INPUT)
     return "the blobs variant needs n_blobs >= 1 and its four arrays, the "
            "setp variant its profile";

@@ -37,13 +37,15 @@ single, sorted and compact schedules.
 lane, or for a batch of many lanes per resident thread whose tiles wait
 long on their slowest lanes a persistent grid whose threads take the next
 lane when theirs is done (`refill_slots`, `grid_pays`), with the same
-outputs bit for bit.
+outputs bit for bit. Under the per-tile exit each launch starts its blocks
+at another tile (`tile_shift`), with the same outputs bit for bit.
 
 Spans (`obs.span`): `solve_mega_cuda` is `k1.dispatch`, holding
 `k1.prepare` (the checks, the knobs, the contiguous inputs, the build's
 lookup) and `k1.launch` (the outputs' and scratch's allocation and the
 launcher's call); a schedule's host work between and after its passes
-(sorts, gathers, scatters) is `k1.schedule`.
+(sorts, gathers, scatters) is `k1.schedule`; the compact schedule's pass 2
+is `k1.tail`.
 """
 
 from __future__ import annotations
@@ -79,12 +81,18 @@ TILE = 128
 launches = 0
 # What the schedules ran, counted by the schedule code itself: solve
 # passes (kernel launches on CUDA tensors, plain runs on CPU tensors), the
-# lanes handed to compact pass 2, and the lanes that needed pass 2 in the
+# lanes handed to compact pass 2, the lanes that needed pass 2 in the
 # last compact call (a 0-d tensor, read after the call; more than
-# `tail_lanes` added means stragglers kept their pass-1 iterate).
+# `tail_lanes` added means stragglers kept their pass-1 iterate), and the
+# tail's lanes that needed it, summed over every compact call
+# (`need_lanes`: 0-d tensors added on the device without a host read, one
+# per device and stream, so that no add reads another device's tensor or
+# another stream's unordered work; `need_total()` sums them, and
+# `need_total() / tail_lanes` is the share of the tail that did work).
 passes = 0
 tail_lanes = 0
 last_need = None
+need_lanes = {}
 # What the last launch's persistent grid did (`refill_slots`), each a 0-d
 # int32 tensor on the card read after the call, or 0 when the launch ran
 # one lane per thread: the lanes a thread took after its first, and the
@@ -105,6 +113,16 @@ retiled_tiles = 0
 # 12-18% slower).
 REFILL_LANES_PER_SLOT = 8
 GRID_PACE = 1.5
+
+# Launches of the per-tile exit so far (`tile_shift`). The card starts a
+# launch's blocks in index order, so a lockstep launch drains on the tiles
+# it starts last; with the batch's last tiles always last, how long the
+# drain takes is set by the batch's layout: at N=48 and B=131,072 (H100)
+# pass 1 of the compact schedule moved by 1.2% (sd) between whole-tile
+# rotations of one batch, more than its work moved between batches. Each
+# launch starts at another tile, so that a batch solved again and again
+# drains on other tiles each time, with the same outputs bit for bit.
+tile_launches = 0
 
 MODELS = ("diff_drive", "bicycle")
 
@@ -956,6 +974,17 @@ def grid_pays(seen) -> bool:
     return seen["pays"]
 
 
+def tile_shift(n_tiles: int) -> int:
+    """The tile the next launch of the per-tile exit over `n_tiles` tiles
+    starts at (its block b solves tile (b + shift) mod n_tiles): the
+    launch count times 0x9E3779B1 (about 2**32 over the golden ratio), mod
+    n_tiles, so that the launches of one batch start spread over its
+    tiles."""
+    global tile_launches
+    tile_launches += 1
+    return tile_launches * 0x9E3779B1 % n_tiles
+
+
 def tile_words(B: int) -> int:
     """Ints of the persistent grid's launch buffer: the claim counter, the
     refilled lanes and the re-solved tiles, then two per TILE-lane tile
@@ -1145,6 +1174,7 @@ def _cuda_launch(launch, kn, ins, opt, diag):
     dev = ins[0].device
     f32 = torch.float32
     key, slots = (None, 0) if kn.tile_exit else _grid_choice(kn, B, dev)
+    shift = tile_shift(B // TILE) if kn.tile_exit else 0
 
     def empty(*shape):
         return torch.empty(shape, dtype=f32, device=dev)
@@ -1170,7 +1200,7 @@ def _cuda_launch(launch, kn, ins, opt, diag):
             *ptr, ctypes.c_int(P), ctypes.c_int(B), ctypes.c_int(T),
             ctypes.c_int(kn.max_iters), ctypes.c_int(kn.n_done_needed),
             ctypes.c_int(kn.n_blobs), ctypes.c_int(slots),
-            ctypes.c_float(kn.sign),
+            ctypes.c_int(shift), ctypes.c_float(kn.sign),
             ctypes.c_float(kn.tol_grad), ctypes.c_float(kn.tol_cost_eff),
             ctypes.c_float(kn.mu_min), ctypes.c_float(kn.mu_max),
             ctypes.c_float(kn.mu_factor), ctypes.c_float(kn.ddp_gate),
@@ -1373,6 +1403,21 @@ def compact_tail(ins, out1, cfg, blobs=None, refs=None) -> CompactTail:
                        refs2, need.sum())
 
 
+def _count_need(need: torch.Tensor) -> None:
+    """Add a 0-d count to `need_lanes` on its device and current stream."""
+    key = (need.device, torch.cuda.current_stream(need.device).stream_id
+           if need.device.type == "cuda" else None)
+    need_lanes[key] = need_lanes.get(key, 0) + need
+
+
+def need_total() -> int:
+    """The sum of `need_lanes` over devices and streams (synchronizes each
+    device that holds a count)."""
+    for dev in {d for d, _ in need_lanes if d.type == "cuda"}:
+        torch.cuda.synchronize(dev)
+    return sum(int(n) for n in need_lanes.values())
+
+
 def _solve_compact(zT, cT, pp, lb, ub, u0, cfg, plain, blobs=None,
                    refs=None):
     """Compact straggler schedule (`_solve_compact` of the JAX package).
@@ -1383,7 +1428,8 @@ def _solve_compact(zT, cT, pp, lb, ub, u0, cfg, plain, blobs=None,
     padded with done lanes (`compact_tail`). Pass 2 resumes the tail to
     completion and the results are scattered back. Lanes that need pass 2
     beyond the tail keep their pass-1 iterate and report unconverged;
-    `last_need` counts them in."""
+    `last_need` counts them in, `need_lanes` counts the tail's lanes that
+    needed pass 2 (at most the tail). Pass 2 runs in the span `k1.tail`."""
     global tail_lanes, last_need
     ins = (zT, cT, pp, lb, ub, u0)
     n_tail = compact_n_tail(zT.shape[-1], cfg)
@@ -1394,9 +1440,11 @@ def _solve_compact(zT, cT, pp, lb, ub, u0, cfg, plain, blobs=None,
     with span("k1.schedule"):
         tail = compact_tail(ins, out1, cfg, blobs, refs)
     last_need = tail.need
+    _count_need(tail.need.clamp(max=n_tail))
     tail_lanes += n_tail
-    out2 = _pass(*tail.ins, tail.cfg, plain, resume=tail.resume,
-                 blobs=tail.blobs, refs=tail.refs)
+    with span("k1.tail"):
+        out2 = _pass(*tail.ins, tail.cfg, plain, resume=tail.resume,
+                     blobs=tail.blobs, refs=tail.refs)
     ss1, us1, cost1, conv1, it1, gn1, mu1, done1 = out1
     ss2, us2, cost2, conv2, it2, gn2, mu2, done2 = out2
     sel = tail.sel

@@ -14,6 +14,8 @@ weights, the blob, setpoint and bicycle variants, copies that land as late
 as the card may let them, and the fixtures whose done lanes blend while
 their tile runs (which the grid's second kernel solves again by tile). The
 grid's counts, `refilled_lanes` and `retiled_tiles`, are checked with them.
+The per-tile exit's blocks started at another tile (`solve_mega.tile_shift`)
+solve the same tiles bit for bit.
 """
 
 import ctypes
@@ -90,10 +92,11 @@ def libs(tmp_path_factory):
 
 
 def _launch(fn, ins, cfg, slots, resume=None, blobs=None, refs=None,
-            lockstep=False):
+            lockstep=False, shift=0, err_want=0):
     """One launch as `solve_mega._cuda_launch` makes it, on CPU tensors:
     the outputs (NaN-filled, so that a lane left unwritten shows) and the
-    grid's counts (refilled lanes, re-solved tiles)."""
+    grid's counts (refilled lanes, re-solved tiles). `shift`: the tile the
+    per-tile exit's blocks start at; `err_want`: the launcher's return."""
     kn = _variant(cfg, blobs, refs, lockstep)
     ins = [a.contiguous() for a in ins]
     T, Bn, P = kn.T, ins[0].shape[-1], ins[1].shape[0]
@@ -117,9 +120,9 @@ def _launch(fn, ins, cfg, slots, resume=None, blobs=None, refs=None,
     err = fn(*[p(a) for a in ins + opt + [ss, us] + outs + [None] + scratch
                + [work, tiles]],
              P, Bn, T, kn.max_iters, kn.n_done_needed, kn.n_blobs, slots,
-             kn.sign, kn.tol_grad, kn.tol_cost_eff, kn.mu_min, kn.mu_max,
+             shift, kn.sign, kn.tol_grad, kn.tol_cost_eff, kn.mu_min, kn.mu_max,
              kn.mu_factor, kn.ddp_gate, *(int(v) for v in kn.variant), None)
-    assert err == 0, err
+    assert err == err_want, err
     counts = (0, 0) if tiles is None else (int(tiles[1]), int(tiles[2]))
     return (ss, us, *outs), counts
 
@@ -306,3 +309,30 @@ def test_emulated_grid_blends_done_lanes_as_their_tile(libs, fixture):
     assert any(bool(a.isnan().any()) for a in lane)
     if fixture != "nonfinite":
         assert retiled > 0
+
+
+def test_emulated_tile_exit_shift_moves_blocks_not_results(libs):
+    """The per-tile exit (done_frac 0.97, 4 tiles) with its blocks started
+    at tiles 1 and 3 (block b solves tile (b + shift) mod 4): every output
+    bit for bit the unshifted launch's, tiles stopped with lanes not done.
+    The launcher refuses a shift outside [0, tiles) and any shift on one
+    thread per lane; `tile_shift` spreads a batch's launches over its
+    tiles."""
+    cfg = dataclasses.replace(CFG, done_frac=0.97)
+    assert _variant(cfg).variant == VARIANTS["lockstep"][0]
+    ins = _inputs(4 * solve_mega.TILE, 17, cfg)
+    base, _ = _launch(libs["lockstep"], ins, cfg, 0)
+    assert not any(bool(a.isnan().any()) for a in base)
+    assert int((base[7] < 0.5).sum()) > 0
+    for shift in (1, 3):
+        got, _ = _launch(libs["lockstep"], ins, cfg, 0, shift=shift)
+        assert _bits_equal(got, base)
+    _launch(libs["lockstep"], ins, cfg, 0, shift=4, err_want=100001)
+    _launch(libs["lockstep"], ins, cfg, 0, shift=-1, err_want=100001)
+    _launch(libs["prod"], ins, CFG, 0, shift=1, err_want=100001)
+    before = solve_mega.tile_launches
+    shifts = [solve_mega.tile_shift(1024) for _ in range(256)]
+    assert solve_mega.tile_launches == before + 256
+    assert all(0 <= k < 1024 for k in shifts)
+    assert len(set(shifts)) == 256
+    assert len(set(shifts[::4])) == 64
